@@ -1,9 +1,10 @@
-"""Accelerated-TinyMPC-TPU: a TPU-native batched convex-MPC engine.
+"""accelerated_tinympc_tpu: a batched convex-MPC engine in JAX.
 
 A from-scratch JAX/XLA/Pallas reimagining of the capabilities of
 ucb-bar/Accelerated-TinyMPC (TinyMPC v0.2.0): ADMM box-constrained LQR tracking
-with an infinite-horizon Riccati cache — redesigned for TPUs as batched,
-functionally-pure, MXU-condensed solves scaling over device meshes.
+with an infinite-horizon Riccati cache — redesigned as batched,
+functionally-pure solves (scan sweeps, dense condensed operators, a fused
+whole-solve GPU kernel) scaling over device meshes.
 """
 
 from .types import (  # noqa: F401

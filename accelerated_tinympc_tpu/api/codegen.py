@@ -17,7 +17,7 @@ wrapper for host languages. The *design* is different by intent:
   src/tinympc/tiny_wrapper.hpp:14-23) so existing ctypes/MATLAB-style bindings
   port over unchanged.
 
-The TPU-side analogue of codegen — AOT export of the compiled solve — lives in
+The accelerator-side analogue of codegen — AOT export of the compiled solve — lives in
 :mod:`.export`.
 """
 

@@ -1,6 +1,6 @@
 """AOT export: freeze a compiled solve into a serialized, relocatable artifact.
 
-This is the TPU-side half of the reference's codegen capability (reference:
+This is the accelerator-side half of the reference's codegen capability (reference:
 src/tinympc/codegen.cpp — freeze solver + data so the solve can run elsewhere
 without the setup toolchain): ``jax.export`` serializes the lowered StableHLO
 of a jitted solve (problem/cache baked in as constants), which any later
@@ -17,9 +17,9 @@ import jax
 import jax.numpy as jnp
 from jax import export as jax_export
 
-from ..solver.batched import solve_batched
-from ..types import Cache, Problem, Settings, State
-from ..solver.batched import init_state_batched
+from ..ops.fused_admm import DEFAULT_BATCH_TILE, FusedCarry, fused_solve
+from ..solver.batched import init_state_batched, solve_batched
+from ..types import Cache, Problem, Settings
 
 
 def export_batched_solve(
@@ -33,7 +33,7 @@ def export_batched_solve(
 ) -> jax_export.Exported:
     """Export ``x0s (batch, nx) -> solved State`` with problem/cache baked in.
 
-    ``platforms`` defaults to the current backend; pass e.g. ``("tpu", "cpu")``
+    ``platforms`` defaults to the current backend; pass e.g. ``("cuda", "cpu")``
     for a multi-platform artifact. ``cones`` (a static
     :class:`..solver.cones.ConeSet`) bakes SOC projections into the
     artifact.
@@ -85,19 +85,21 @@ def export_fused_solve(
     check_termination: int = 0,
     abs_pri_tol: float = 1e-3,
     abs_dua_tol: float = 1e-3,
-    batch_tile: int = 512,
+    batch_tile: int = DEFAULT_BATCH_TILE,
     platforms: tuple[str, ...] | None = None,
 ) -> jax_export.Exported:
-    """Export the fused Pallas whole-solve kernel (operators baked in) as a
-    serialized artifact — the deployment form of the fastest path.
+    """Export the fused whole-solve kernel (operators baked in) as a
+    serialized artifact — the deployment form of the fused tier.
 
     Signature of the exported callable:
     ``(x0 (B, nx), D, Y, G, Z, V) -> dict`` with the solved ``U``/``X``,
-    updated carries, and the stats row (plain arrays/dicts only — custom
-    pytree types are not serializable by jax.export). Lowering requires a
-    TPU-capable build unless exported for the interpreter platform.
+    updated carries, and the stats rows (plain arrays/dicts only — custom
+    pytree types are not serializable by jax.export). The kernel lowers
+    through Triton, so the artifact targets CUDA (the default platform
+    list). JAX gives the Triton kernel call no compatibility guarantee
+    across versions, so its safety check is waived here: load the artifact
+    with the same jax/jaxlib version that exported it.
     """
-    from ..ops.fused_admm import FusedCarry, fused_solve
 
     nx = pp.dims[0]
 
@@ -123,7 +125,9 @@ def export_fused_solve(
         jax.ShapeDtypeStruct((batch, pp.Dup), f32),
         jax.ShapeDtypeStruct((batch, pp.Dxp), f32),
     )
-    kwargs = (
-        {"platforms": list(platforms)} if platforms is not None else {}
-    )
-    return jax_export.export(jax.jit(fn), **kwargs)(*args)
+    return jax_export.export(
+        jax.jit(fn), platforms=list(platforms or ("cuda",)),
+        disabled_checks=[
+            jax_export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
+    )(*args)

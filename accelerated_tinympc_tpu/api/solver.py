@@ -1,5 +1,5 @@
-"""High-level solver API: the TPU-native counterpart of the reference's
-setup + FFI surface.
+"""High-level solver API: the counterpart of the reference's setup + FFI
+surface.
 
 The reference exposes two entry layers: ``tiny_codegen(nx, nu, N, A, B, Q, R,
 bounds, rho, ...)`` for offline setup (reference: src/tinympc/codegen.hpp:10-15)
@@ -9,7 +9,7 @@ src/tinympc/tiny_wrapper.hpp:14-23). :class:`TinyMPC` covers both roles as an
 immutable-under-the-hood convenience object: construction runs the Riccati
 precompute (the math half of codegen), setters return updated solvers
 (functional, jit-friendly), and ``solve`` dispatches to the execution tier
-(``scan`` | ``condensed`` | ``fused``).
+(``scan`` | ``condensed`` | ``fused`` | ``block``).
 
 Unlike the reference's one-global-solver-per-process design
 (tiny_wrapper.hpp:6), any number of TinyMPC instances coexist, each optionally
@@ -31,7 +31,6 @@ from ..solver import admm
 from ..solver.batched import batch_stats, init_state_batched, solve_batched
 from ..types import Cache, Problem, Settings, State, init_state
 from ..ops.fused_admm import (
-    DEFAULT_BATCH_TILE,
     FusedCarry,
     PaddedProblem,
     fused_solve,
@@ -75,27 +74,41 @@ def _jit_solve_condensed(cones=None, nu=None):
 
 
 @functools.lru_cache(maxsize=16)
-def _jit_fused(max_iter, check_termination, batch_tile, interpret,
-               algo="f32", alpha=1.0):
-    # Tolerances are *traced* operands of the kernel (SMEM), so they stay out
-    # of the cache key — changing tolerances never recompiles. cone_ops is a
-    # pytree operand (its static cone counts key the jit cache internally).
-    def fn(x0, carry, pp, pri_tol, dua_tol, cone_ops=None,
-           cone_mu_u=None, cone_shift_u=None,
-           cone_mu_x=None, cone_shift_x=None):
+def _jit_fused(max_iter, check_termination, interpret, alpha=1.0):
+    # Tolerances are traced kernel operands, so they stay out of the cache
+    # key — changing tolerances never recompiles.
+    def fn(x0, carry, pp, pri_tol, dua_tol):
         return fused_solve(
             x0, carry, pp, max_iter=max_iter,
             check_termination=check_termination,
             abs_pri_tol=pri_tol, abs_dua_tol=dua_tol,
-            batch_tile=batch_tile, interpret=interpret, algo=algo,
-            alpha=alpha, cone_ops=cone_ops,
-            cone_mu_u=cone_mu_u, cone_shift_u=cone_shift_u,
-            cone_mu_x=cone_mu_x, cone_shift_x=cone_shift_x,
+            interpret=interpret, alpha=alpha,
         )
 
-    # The interpreter path rejects jit-of-pallas on CPU test runs; eager is
-    # fine there (tests only).
-    return fn if interpret else jax.jit(fn)
+    return jax.jit(fn)
+
+
+def _stats(state: State, settings: Settings) -> dict[str, Any]:
+    """Batched solve stats: the aggregates of ``batch_stats`` plus the
+    per-instance arrays every tier reports — ``iterations``, ``solved`` and
+    ``residuals`` ``(B, 4)`` [pri_state, dua_state, pri_input, dua_input]
+    as of the last termination check."""
+    out = {k: np.asarray(v) for k, v in batch_stats(state, settings).items()}
+    out["iterations"] = np.asarray(state.iter, np.int64)
+    out["solved"] = np.asarray(state.status) == 1
+    out["residuals"] = residuals_of(state)
+    return out
+
+
+def residuals_of(state) -> np.ndarray:
+    """Per-instance ``(B, 4)`` residuals [pri_state, dua_state, pri_input,
+    dua_input] of a batched ``State``."""
+    return np.stack([
+        np.asarray(state.primal_residual_state),
+        np.asarray(state.dual_residual_state),
+        np.asarray(state.primal_residual_input),
+        np.asarray(state.dual_residual_input),
+    ], axis=-1)
 
 
 @dataclasses.dataclass
@@ -113,35 +126,20 @@ class TinyMPC:
     batch: int | None = None          # None = single instance
     tier: str = "scan"
     interpret: bool = False           # Pallas interpreter (CPU testing)
-    # Fused-tier matmul arithmetic: "f32" (6-pass HIGHEST, golden default) or
-    # "bf16x3" (3-pass split bf16 — ~1.5x throughput, ~2e-5 control error).
-    # Fixed mode adds an f32 polish tail; adaptive mode keeps every check
-    # iteration f32 (exact residual guarantees) but gives up bit-exact
-    # iteration-count parity with the scan tier (see ops/fused_admm.py).
-    algo: str = "f32"
-    # Second-order-cone constraints (solver/cones.py) — scan and condensed
-    # tiers (the fused kernel bakes box-projection structure; see from_parts).
+    # Second-order-cone constraints (solver/cones.py) — scan, condensed and
+    # block tiers (the fused kernel runs box projections only).
     cones: Any = None
-    # Per-instance cone mu/shift overrides — fused tier, batched: (nc, B)
-    # arrays over the input/state cones (constraint-parameter sweeps at
-    # fused-kernel speed; see ops/fused_admm.fused_solve cone_mu_u).
-    cone_mu: Any = None
-    cone_shift: Any = None
-    cone_mu_x: Any = None
-    cone_shift_x: Any = None
     # Fused tier, adaptive mode: > 0 enables the early-termination compaction
     # cascade (solver/cascade.py) with this segment length (must be a
     # multiple of check_termination). 0 = one monolithic adaptive call.
     compaction_segment: int = 0
     # Block-condensed tier (tier="block"): knots per dense block — the
-    # long-horizon MXU tier (solver/block_condensed.py, 1.8x scan at N=1024
-    # on chip, BASELINE.md round 5).
+    # long-horizon tier (solver/block_condensed.py).
     block: int = 32
     # tier-internal precompute (built lazily)
     _block_fn: Any = None
     _ops: CondensedOperators | None = None
     _pp: PaddedProblem | None = None
-    _cone_ops: Any = None
     # mutable solve state
     state: State | None = None
     _fused_carry: FusedCarry | None = None
@@ -168,10 +166,6 @@ class TinyMPC:
         interpret: bool = False,
         dtype: Any = jnp.float32,
         cones: Any = None,
-        cone_mu=None,
-        cone_shift=None,
-        cone_mu_x=None,
-        cone_shift_x=None,
         compaction_segment: int = 0,
         block: int = 32,
     ) -> "TinyMPC":
@@ -214,8 +208,6 @@ class TinyMPC:
         return cls.from_parts(
             problem, cache, settings=settings, batch=batch, tier=tier,
             interpret=interpret, cones=cones,
-            cone_mu=cone_mu, cone_shift=cone_shift,
-            cone_mu_x=cone_mu_x, cone_shift_x=cone_shift_x,
             compaction_segment=compaction_segment, block=block,
         )
 
@@ -229,26 +221,15 @@ class TinyMPC:
         batch: int | None = None,
         tier: str = "scan",
         interpret: bool = False,
-        algo: str = "f32",
         cones: Any = None,
-        cone_mu=None,
-        cone_shift=None,
-        cone_mu_x=None,
-        cone_shift_x=None,
         compaction_segment: int = 0,
         block: int = 32,
     ) -> "TinyMPC":
         if tier not in TIERS:
             raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
-        has_cp = any(a is not None for a in
-                     (cone_mu, cone_shift, cone_mu_x, cone_shift_x))
-        if has_cp:
-            if cones is None:
-                raise ValueError("per-instance cone parameters override a "
-                                 "base ConeSet — pass cones= as well")
-            if tier != "fused" or batch is None:
-                raise ValueError("per-instance cone parameters need the "
-                                 "batched fused tier (tier='fused', batch=B)")
+        if tier == "fused" and cones is not None:
+            raise ValueError("the fused kernel runs box projections only; "
+                             "SOC cones run on the scan/condensed/block tiers")
         self = cls(
             problem=problem,
             cache=cache,
@@ -256,10 +237,7 @@ class TinyMPC:
             batch=batch,
             tier=tier,
             interpret=interpret,
-            algo=algo,
             cones=cones,
-            cone_mu=cone_mu, cone_shift=cone_shift,
-            cone_mu_x=cone_mu_x, cone_shift_x=cone_shift_x,
             compaction_segment=compaction_segment, block=block,
         )
         self._reset_state()
@@ -307,13 +285,6 @@ class TinyMPC:
         self._pp = pad_problem(
             self._bounded_problem(), self.cache, self._ensure_ops()
         )
-        self._cone_ops = None
-        if self.cones is not None and (
-            self.cones.input_cones or self.cones.state_cones
-        ):
-            from ..ops.fused_admm import pad_cones
-
-            self._cone_ops = pad_cones(self._pp, self.cones)
 
     # ----------------------------------------------------------- setters ----
     # Functional analogues of the reference FFI setters
@@ -338,7 +309,7 @@ class TinyMPC:
             xref_q, pterm_c = ref_vectors(
                 self._pp, self.problem.Q, self.cache.Pinf, Xref
             )
-            self._pp = self._pp._replace(xref_q=xref_q, pterm_c=pterm_c)
+            self._pp = self._pp.replace(xref_q=xref_q, pterm_c=pterm_c)
 
     def set_bounds(
         self,
@@ -402,17 +373,13 @@ class TinyMPC:
         self.state = fn(
             self.state, self.problem, self.cache, self.settings
         )
-        return {
-            k: np.asarray(v) for k, v in
-            batch_stats(self.state, self.settings).items()
-        }
+        return _stats(self.state, self.settings)
 
     def rollout(
         self,
         n_ticks: int,
         *,
         Xref_total: jax.Array | None = None,
-        in_kernel: bool = False,
     ):
         """Run ``n_ticks`` of the reference's receding-horizon loop fully on
         device from the current ``x0`` (reference:
@@ -424,9 +391,7 @@ class TinyMPC:
 
         Returns ``(x_final, us)`` with the leading batch axis dropped for
         single-instance solvers; the solver's warm-start state advances to
-        the end of the rollout (continuations compose). On the fused tier
-        ``in_kernel=True`` runs the whole mission inside one Pallas launch
-        (:func:`..ops.fused_rollout.fused_rollout`; no cones).
+        the end of the rollout (continuations compose).
         """
         from .mpc import fused_mpc_rollout, mpc_rollout
 
@@ -441,12 +406,10 @@ class TinyMPC:
                 check_termination=self.settings.check_termination,
                 abs_pri_tol=float(self.settings.abs_pri_tol),
                 abs_dua_tol=float(self.settings.abs_dua_tol),
-                batch_tile=min(DEFAULT_BATCH_TILE, x0.shape[0]),
                 carry=self._fused_carry, interpret=self.interpret,
                 Xref_total=Xref_total,
                 Pinf=self.cache.Pinf if Xref_total is not None else None,
-                cone_ops=self._cone_ops, algo=self.algo,
-                in_kernel=in_kernel,
+                alpha=self.settings.alpha,
             )
             self._fused_carry = carry
             self.state = self.state.replace(
@@ -455,13 +418,10 @@ class TinyMPC:
             if single:
                 return xf[0], us[:, 0]
             return xf, us
-        if in_kernel:
-            raise ValueError("in_kernel rollout requires tier='fused'")
         if self.cones is not None:
             raise ValueError(
-                "rollout with cones is supported on tier='fused' "
-                "(in-kernel cone projection); scan-tier coned rollouts: "
-                "drive the tick loop with solve()/reset_duals()")
+                "rollouts with cones: drive the tick loop with "
+                "solve()/reset_duals() on the scan tier")
         solver = None
         if self.tier == "block":
             # Long-horizon missions: block-condensed sweeps per tick
@@ -516,16 +476,12 @@ class TinyMPC:
                 "solved": bool(state.status == 1),
             }
         self.state = state
-        return {
-            k: np.asarray(v) for k, v in
-            batch_stats(state, self.settings).items()
-        }
+        return _stats(state, self.settings)
 
     def _solve_block(self) -> dict[str, Any]:
         """Block-condensed long-horizon sweeps (solver/block_condensed.py):
-        scan-tier semantics, MXU-sized per-block contractions — the
-        shared-plant long-horizon tier (1.8-2.1x scan at N>=256 on chip,
-        BASELINE.md round 5)."""
+        scan-tier semantics, dense per-block contractions — the
+        shared-plant long-horizon tier."""
         if self._block_fn is None:
             from ..solver.block_condensed import block_sweeps
             from ..solver.cones import cone_slack_update
@@ -574,10 +530,7 @@ class TinyMPC:
                 "iterations": int(self.state.iter),
                 "solved": bool(self.state.status == 1),
             }
-        return {
-            k: np.asarray(v) for k, v in
-            batch_stats(self.state, self.settings).items()
-        }
+        return _stats(self.state, self.settings)
 
     def _solve_fused(self) -> dict[str, Any]:
         x0 = self.state.x[..., 0, :]
@@ -593,36 +546,28 @@ class TinyMPC:
                 segment_iters=self.compaction_segment,
                 abs_pri_tol=float(self.settings.abs_pri_tol),
                 abs_dua_tol=float(self.settings.abs_dua_tol),
-                batch_tile=min(DEFAULT_BATCH_TILE, x0.shape[0]),
                 interpret=self.interpret,
-                cone_ops=self._cone_ops,
-                cone_mu_u=self.cone_mu, cone_shift_u=self.cone_shift,
-                cone_mu_x=self.cone_mu_x, cone_shift_x=self.cone_shift_x,
-                algo=self.algo,
             )
         else:
             res = _jit_fused(
                 self.settings.max_iter, self.settings.check_termination,
-                min(DEFAULT_BATCH_TILE, x0.shape[0]), self.interpret,
-                self.algo, self.settings.alpha,
+                self.interpret, self.settings.alpha,
             )(
                 x0, self._fused_carry, self._pp,
                 jnp.float32(self.settings.abs_pri_tol),
                 jnp.float32(self.settings.abs_dua_tol),
-                self._cone_ops,
-                self.cone_mu, self.cone_shift,
-                self.cone_mu_x, self.cone_shift_x,
             )
         self._fused_carry = res.carry
         self._fused_result = res
         stats = np.asarray(res.stats)
-        # Residual lanes are valid in both modes; the solved flag (lane 1) is
-        # tracked only in adaptive mode (check_termination > 0).
+        # Residual columns are valid in both modes; the solved flag
+        # (column 1) is tracked only in adaptive mode (check_termination > 0).
         return {
             "iterations_mean": float(stats[:, 0].mean()),
             "converged_fraction": float(stats[:, 1].mean()),
             "iterations": stats[:, 0].astype(np.int64),
             "solved": stats[:, 1] > 0.5,
+            "residuals": stats[:, 2:6],
             "primal_residual_state_max": float(stats[:, 2].max()),
             "dual_residual_state_max": float(stats[:, 3].max()),
             "primal_residual_input_max": float(stats[:, 4].max()),
@@ -641,12 +586,8 @@ class TinyMPC:
         returned in the stats dict. Keyword args pass through (chunk,
         adapt_factor, rho_min/max, ...).
         """
-        import numpy as np
-
         from ..solver.adaptive_rho import solve_adaptive_rho
-        from ..solver.batched_ops import (
-            OpsState, solve_adaptive_rho_batched,
-        )
+        from ..solver.batched_ops import solve_adaptive_rho_batched
 
         if self.batch is None:
             res = solve_adaptive_rho(
@@ -692,7 +633,7 @@ class TinyMPC:
         if self.tier == "fused":
             if self._fused_result is None:  # pre-solve: zero state, like
                 return np.asarray(self.state.u)  # the other tiers
-            nx, nu, N = self._pp.dims
+            _nx, nu, N = self._pp.dims
             u = np.asarray(self._fused_result.U[:, : (N - 1) * nu])
             u = u.reshape(-1, N - 1, nu)
             return u[0] if self.batch is None else u

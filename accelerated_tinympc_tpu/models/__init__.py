@@ -11,4 +11,4 @@ from .quadrotor import (  # noqa: F401
     quadrotor_tracking_setup,
 )
 from .cartpole import RHO as CARTPOLE_RHO, cartpole_problem  # noqa: F401
-from .random_lti import random_lti_problem  # noqa: F401
+from .random_lti import random_lti_plants, random_lti_problem  # noqa: F401

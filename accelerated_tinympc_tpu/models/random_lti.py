@@ -59,3 +59,29 @@ def random_lti_problem(
         Uref=jnp.zeros((m, nu), dtype),
     )
     return problem, rho
+
+
+def random_lti_plants(
+    batch: int,
+    nx: int,
+    nu: int,
+    *,
+    seed: int = 0,
+    dt: float = 0.05,
+    q_scale: float = 10.0,
+    r_scale: float = 1.0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A batch of distinct plants from the :func:`random_lti_problem`
+    family, drawn in bulk on the host: ``(A (B,nx,nx), B (B,nx,nu),
+    Q (B,nx), R (B,nu))`` as float32, deterministic in ``seed``. The fleet
+    entry point (:class:`..api.TinyMPCFleet`) takes these directly."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((batch, nx, nx)) / np.sqrt(nx) - 0.5 * np.eye(nx)
+    A = np.eye(nx) + dt * M
+    rad = np.max(np.abs(np.linalg.eigvals(A)), axis=-1)
+    A *= np.where(rad > 1.05, 1.05 / rad, 1.0)[:, None, None]
+    Bm = rng.standard_normal((batch, nx, nu)) / np.sqrt(nx)
+    Q = q_scale * (0.5 + rng.random((batch, nx)))
+    R = r_scale * (0.5 + rng.random((batch, nu)))
+    f32 = lambda a: np.asarray(a, np.float32)
+    return f32(A), f32(Bm), f32(Q), f32(R)

@@ -4,7 +4,7 @@ The native library is the framework's C++ runtime component: a
 runtime-dimensioned, double-precision ADMM solver with its own Riccati
 precompute — used for host-side deployment (no Python/JAX required at the
 call site beyond these bindings) and as a fast independent cross-check of the
-TPU tiers. Built on demand with ``make -C native`` (g++, no dependencies).
+JAX tiers. Built on demand with ``make -C native`` (g++, no dependencies).
 """
 
 from __future__ import annotations

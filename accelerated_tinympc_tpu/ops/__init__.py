@@ -1,4 +1,4 @@
-"""Pallas TPU kernels (the fused hot path)."""
+"""Hand-written GPU kernels: the fused whole-solve kernel (Pallas, Triton route)."""
 
 from .fused_admm import (  # noqa: F401
     DEFAULT_BATCH_TILE,
@@ -7,42 +7,7 @@ from .fused_admm import (  # noqa: F401
     PaddedProblem,
     fused_solve,
     pad_problem,
+    ref_vectors,
     unpad_controls,
     unpad_states,
-)
-from .fused_rollout import (  # noqa: F401
-    RolloutOps,
-    RolloutResult,
-    fused_rollout,
-    rollout_const_seq,
-    rollout_ops,
-)
-from .hetero_admm import (  # noqa: F401
-    HeteroCarry,
-    HeteroProblem,
-    HeteroResult,
-    hetero_solve,
-    pad_hetero_cone_masks,
-    pad_hetero_cone_params,
-    pad_hetero_from_plants,
-    pad_hetero_problem,
-)
-from .riccati_kernel import (  # noqa: F401
-    riccati_cache_kernel,
-    riccati_cache_newton,
-)
-from .stream_admm import (  # noqa: F401
-    StreamCarry,
-    StreamProblem,
-    StreamResult,
-    pad_stream_problem,
-    stream_solve,
-)
-from .hstream_admm import (  # noqa: F401
-    HStreamProblem,
-    gather_hstream,
-    hstream_carry_zeros,
-    hstream_solve,
-    pad_hstream_from_plants,
-    pad_hstream_problem,
 )

@@ -1,4 +1,4 @@
-"""Multi-chip/multi-host scaling over device meshes."""
+"""Multi-device/multi-host scaling over device meshes."""
 
 from .mesh import (  # noqa: F401
     BATCH_AXIS,
@@ -6,13 +6,7 @@ from .mesh import (  # noqa: F401
     make_batch_mesh,
     replicate,
     shard_batch,
-    sharded_adaptive_hetero,
-    sharded_fused_rollout,
     sharded_fused_solve,
-    sharded_hetero_solve,
-    sharded_hstream_solve,
-    sharded_cascade_solve,
-    sharded_stream_solve,
     sharded_solve,
     summarize_stats,
 )

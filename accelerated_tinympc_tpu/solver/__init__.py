@@ -1,14 +1,11 @@
-"""Solver tiers: scan (ground truth), assoc (long-horizon), condensed (MXU
-operators), batched (vmap + masked early termination). The fused Pallas tier
-lives in ops/fused_admm.py."""
+"""Solver tiers: scan (ground truth), assoc (long-horizon), condensed (dense
+operators), block-condensed, batched (vmap + masked early termination),
+instance-ops (per-instance plants). The fused kernel tier lives in
+ops/fused_admm.py."""
 
 from . import admm  # noqa: F401
 from .admm import admm_iteration, solve  # noqa: F401
 from .adaptive_rho import AdaptiveRhoResult, solve_adaptive_rho  # noqa: F401
-from .adaptive_hetero import (  # noqa: F401
-    AdaptiveHeteroResult,
-    solve_adaptive_rho_hetero,
-)
 from .batched_ops import (  # noqa: F401
     AdaptiveRhoBatchedResult,
     InstanceOps,
@@ -27,12 +24,7 @@ from .block_condensed import (  # noqa: F401
     solve_block,
     solve_block_batched,
 )
-from .cascade import (  # noqa: F401
-    cascade_solve,
-    hetero_cascade_solve,
-    hstream_cascade_solve,
-    stream_cascade_solve,
-)
+from .cascade import cascade_solve  # noqa: F401
 from .cones import (  # noqa: F401
     Cone,
     ConeSet,

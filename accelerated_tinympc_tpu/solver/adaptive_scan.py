@@ -1,10 +1,9 @@
 """Per-instance adaptive rho on the scan tier: any horizon, any nx.
 
-The adaptive-rho family so far is shape-bound: the einsum tier
+The einsum tier's adaptive loop
 (:func:`.batched_ops.solve_adaptive_rho_batched`) carries O((N nu)^2)
-condensed operators per instance (short horizons only), the fused hetero
-loop (:mod:`.adaptive_hetero`) needs the nx<=16 lane-slab kernels. This
-module closes the remaining cell of the capability matrix — **adaptive
+condensed operators per instance (short horizons only). This module closes
+the remaining cell of the capability matrix — **adaptive
 rho at long horizons and large state dimensions** — by running the
 OSQP-style round loop (reference rho-in-the-cache anchor:
 src/tinympc/codegen.cpp:254-292 — the adaptation re-runs that bake per
@@ -14,11 +13,10 @@ cache refresh on the vmapped jnp builders — warm Newton-Kleinman
 (:func:`..precompute.riccati_newton_jax`, quadratic outers from the
 rho-independent closed-loop gain) or the warm fixed point. The scan tier
 consumes the :class:`..types.Cache` directly, so a refresh needs **no
-operand repack at all** (the hetero loop's third stage disappears).
+operand repack at all**.
 
-One ``lax.while_loop`` end to end, mirroring
-:func:`.adaptive_hetero.solve_adaptive_rho_hetero`'s round structure
-decision-for-decision (chunked solves with per-instance freezing, stall x
+One ``lax.while_loop`` end to end, mirroring the einsum tier's round
+structure decision-for-decision (chunked solves with per-instance freezing, stall x
 imbalance guard, sqrt(pri/dua) rescale, dual rescale by rho_old/rho_new,
 instances solved in an earlier round frozen verbatim) — pinned against
 the einsum tier in tests/test_adaptive_scan.py.
@@ -73,9 +71,9 @@ def solve_adaptive_rho_scan(
     adaptive tiers). ``riccati``: ``"newton"`` (warm Newton-Kleinman —
     any nx) or ``"vmap"`` (warm fixed point). ``block > 0`` runs the
     chunks with block-condensed sweeps (shared-plant batches only — see
-    BASELINE.md round 5 for why per-instance block operators lose).
+    :mod:`.block_condensed` on per-instance block operators).
     Jittable end to end."""
-    from ..precompute import riccati_cache_jax, riccati_newton_jax
+    from ..precompute import riccati_caches_batched
 
     if riccati not in ("newton", "vmap"):
         raise ValueError(f"riccati must be 'newton' or 'vmap', got {riccati!r}")
@@ -89,19 +87,8 @@ def solve_adaptive_rho_scan(
         )
 
     def build_caches(rho, warm=None):
-        if warm is None:
-            return jax.vmap(riccati_cache_jax)(A, B, Q, R, rho)
-        if riccati == "newton":
-            return jax.vmap(
-                lambda a, b, q, r, p, K0: riccati_newton_jax(
-                    a, b, q, r, p, K0, tol=1e-6
-                )
-            )(A, B, Q, R, rho, warm.Kinf)
-        return jax.vmap(
-            lambda a, b, q, r, p, P0, K0: riccati_cache_jax(
-                a, b, q, r, p, P0=P0, K0=K0
-            )
-        )(A, B, Q, R, rho, warm.Pinf, warm.Kinf)
+        return riccati_caches_batched(A, B, Q, R, rho, warm=warm,
+                                      newton=riccati == "newton")
 
     prob_b = problem.replace(A=A, B=B, Q=Q, R=R)
     rho0 = jnp.asarray(rho0, jnp.float32)

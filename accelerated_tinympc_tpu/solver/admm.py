@@ -57,7 +57,7 @@ def _scoped(name):
 
 
 def _mv(M: jax.Array, v: jax.Array) -> jax.Array:
-    """Matrix-vector product at full f32 precision (MXU HIGHEST)."""
+    """Matrix-vector product at full f32 precision (HIGHEST: never TF32)."""
     return jnp.matmul(M, v, precision=_HI)
 
 

@@ -8,11 +8,10 @@ backward gradient recursion) — latency O(N). Both are *affine* recurrences:
     backward:  p_i     = M p_{i+1} + c_i, M = AmBKt,        c_i = q_i - Kinf^T r_i
 
 Affine maps compose associatively ((A2,b2)∘(A1,b1) = (A2 A1, A2 b1 + b2)), so
-each sweep is a ``lax.associative_scan`` of depth O(log N) — the principled
-TPU analogue of sequence parallelism for the MPC horizon (SURVEY.md §5
-"Long-context" row). Extra work is O(N nx^3) matmul FLOPs, which land on the
-MXU; for horizons in the hundreds this trades cheap FLOPs for a ~N/log N
-latency cut on the critical path.
+each sweep is a ``lax.associative_scan`` of depth O(log N) — sequence
+parallelism for the MPC horizon (SURVEY.md §5 "Long-context" row). Extra
+work is O(N nx^3) matmul FLOPs; for horizons in the hundreds this trades
+cheap FLOPs for a ~N/log N latency cut on the critical path.
 
 Semantics identical to the scan tier (same dropped coeff_d2p term etc.);
 tested for parity. Sweeps are single-instance; batch with ``vmap``. Use via ``admm_iteration(..., forward=forward_pass_assoc,

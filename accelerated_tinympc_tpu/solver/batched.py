@@ -1,9 +1,9 @@
 """Batched ADMM solves with per-instance early termination.
 
 The reference binds one solver to one problem per process (global
-``tiny_data_solver`` — reference: src/tinympc/tiny_wrapper.hpp:6); the TPU-native
-scaling story is the opposite: a leading batch axis over thousands of problem
-instances feeding the MXU (SURVEY.md §2 "Parallelism strategies").
+``tiny_data_solver`` — reference: src/tinympc/tiny_wrapper.hpp:6); the scaling
+story here is the opposite: a leading batch axis over thousands of problem
+instances in every kernel (SURVEY.md §2 "Parallelism strategies").
 
 Early termination under a batch is the subtle part (SURVEY.md §7 "hard parts"):
 per-instance convergence diverges, and naive ``vmap`` of a ``while_loop`` keeps

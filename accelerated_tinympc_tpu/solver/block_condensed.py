@@ -1,21 +1,19 @@
-"""Block-condensed horizon sweeps: the MXU-fed long-horizon tier (round 5).
+"""Block-condensed horizon sweeps: the long-horizon tier.
 
-The matched long-horizon head-to-head (BASELINE.md round 5) showed the plain
-scan tier degrading with N (425 M -> 258 M knot-iterations/s from N=256 to
-N=1024) while remaining ahead of the streaming kernel: both spend the
-sequential sweeps issuing O(N) *tiny* contractions (an (nx, nx) matvec per
-knot has contraction depth 8 against the MXU's 128), so the sweeps are
-op-issue-latency-bound, not FLOP-bound. This tier removes that bound the
-TPU way: condense each *block* of ``kb`` knots into dense affine operators
+The plain scan tier spends its sequential sweeps issuing O(N) *tiny*
+contractions (an (nx, nx) matvec per knot), so at long horizons the sweeps
+are bound by the latency of one small step after another, not by FLOPs.
+This tier removes that bound: condense each *block* of ``kb`` knots into
+dense affine operators
 (the :class:`..precompute.CondensedOperators` math restricted to a block —
 reference recursions: src/tinympc/admm.cpp:27-37 forward rollout, :15-22
 backward gradient) and run the sweeps as ``lax.scan`` over N/kb blocks of
-MXU-sized matmuls — ``(B, kb*nu) @ (kb*nu, kb*nx)`` contractions with
-depth 48-128 instead of 8, and kb-times fewer sequential steps.
+dense matmuls — ``(B, kb*nu) @ (kb*nu, kb*nx)`` contractions with depth
+48-128 instead of 8, and kb-times fewer sequential steps.
 
 The arithmetic inflates by ~kb*nu/nx per forward block (dense block
-operator vs sparse knot recurrence) — the classic TPU trade: pay zero-FLOPs
-to buy systolic-array shape. Iterates, elementwise stages, and the ADMM
+operator vs sparse knot recurrence): extra FLOPs bought for fewer, larger
+steps. Iterates, elementwise stages, and the ADMM
 loop semantics are exactly :mod:`.admm`'s (this module only overrides the
 two horizon sweeps through :func:`..solver.admm.admm_iteration`'s
 ``forward``/``backward`` hooks, like the associative-scan tier); block
@@ -23,11 +21,10 @@ boundaries change only the floating-point summation order (parity within
 the usual FMA band, pinned in tests/test_block_condensed.py).
 
 Use when N is large and the plant is SHARED across the batch (the
-operators then stay VMEM/cache-resident and amortize over every
-instance). For per-instance plants the same construction is a measured
-negative — each instance's operator tree streams from HBM every
-iteration; the vmapped scan tier wins there (BASELINE.md round 5,
-``TinyMPCFleet(tier="scan")``). ``block=16`` covers N-1 with a tail block
+operators then stay cache-resident and amortize over every instance). For
+per-instance plants each instance's operator tree streams from device
+memory every iteration, which favours the vmapped scan tier
+(``TinyMPCFleet(tier="scan")``). ``block=16`` covers N-1 with a tail block
 when ``kb`` does not divide N-1.
 """
 
@@ -173,7 +170,7 @@ def block_sweeps(cache: Cache, A, B, horizon: int, block: int = 16):
     """Build ``(forward, backward)`` sweep overrides for
     :func:`..solver.admm.admm_iteration` — shared plant, operators built
     host-side in float64 (single-instance ``State``; vmap for batches —
-    the block matmuls then become ``(B, kb*nu) @ ...`` MXU
+    the block matmuls then become ``(B, kb*nu) @ ...`` batched
     contractions)."""
     kb, q, r = block_sizes(horizon, block)
     nx, nu = np.asarray(B).shape
@@ -216,11 +213,10 @@ def solve_block_batched(
     operators of :func:`block_ops_batched`, which ``ops`` can supply
     prebuilt to amortize across solves).
 
-    **Measured NEGATIVE at fleet scale** (BASELINE.md round 5): with
-    per-instance plants the block operators cannot stay resident — every
-    instance's ~kb^2-scaled operator tree streams from HBM each
-    iteration, and the vmapped scan tier wins 2.6-10x at N=256/B=1024 on
-    chip. Block condensation pays off when the plant is SHARED
+    With per-instance plants the block operators cannot stay resident —
+    every instance's ~kb^2-scaled operator tree streams from device memory
+    each iteration (speed on the card: not measured). Block condensation
+    pays off when the plant is SHARED
     (:func:`solve_block`); for fleets use
     ``TinyMPCFleet(tier="scan")``. Kept for completeness and parity
     coverage."""

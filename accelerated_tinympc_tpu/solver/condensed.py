@@ -1,12 +1,12 @@
-"""Condensed-operator ADMM: the MXU-first execution tier.
+"""Condensed-operator ADMM: the dense-matmul execution tier.
 
 Both horizon sweeps of the reference's ADMM iteration are affine recurrences
 (forward rollout — reference: src/tinympc/admm.cpp:27-37; backward Riccati
 gradient recursion — src/tinympc/admm.cpp:15-22), so each sweep collapses into a
 dense matmul against precomputed operators (:func:`..precompute.condensed_operators`).
 For a batch ``B`` the per-iteration hot path becomes a handful of
-``(B, n) @ (n, m)`` matmuls with ``B`` on MXU sublanes — instead of ``2*(N-1)``
-dependent 12x12-class matvecs that leave the 128x128 systolic array idle.
+``(B, n) @ (n, m)`` matmuls over the batch — instead of ``2*(N-1)``
+dependent 12x12-class matvecs, each a small launch-bound step.
 
 State layout here is *flat and batch-leading*: ``X/V/G/Q (B, N*nx)``,
 ``U/Z/Y/R/D (B, (N-1)*nu)``, time-major within the flattened axis. The math is
@@ -21,20 +21,18 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
-
 from ..precompute import CondensedOperators
-from ..types import SOLVED, UNSOLVED, Cache, Problem, Settings
+from ..types import SOLVED, UNSOLVED, Cache, Problem, Settings, pytree_dataclass
 
 _HI = jax.lax.Precision.HIGHEST
 
 
 def _mm(a: jax.Array, bT: jax.Array) -> jax.Array:
-    """(B, k) @ (k, n) at full f32 MXU precision."""
+    """(B, k) @ (k, n) at full f32 precision (IEEE f32, never TF32)."""
     return jnp.matmul(a, bT, precision=_HI)
 
 
-@struct.dataclass
+@pytree_dataclass
 class FlatState:
     """Flattened batched ADMM iterate set. Leaves ``(B, N*nx)`` / ``(B, m*nu)``
     except residuals/status/iter ``(B,)``. ``x0`` is the (fixed-per-solve)
@@ -61,7 +59,7 @@ class FlatState:
     iter: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class FlatProblem:
     """Problem data flattened to the condensed layout. Cost diagonals are
     broadcast over the horizon (``Qh (N*nx,)``, ``Rh`` unused — the reference

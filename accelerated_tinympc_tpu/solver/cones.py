@@ -103,9 +103,7 @@ def project_cone_masked(
     rows (None -> the static ``cone.ball``/``cone.axis`` indices),
     ``mu``/``shift`` are ``(B,)`` (None -> the static scalars). The row
     gather/scatter of :func:`project_cone` is replaced by mask-weighted
-    sums — the jnp counterpart of the hetero kernel's masked path
-    (ops/hetero_admm._project_soc_seg_masked); ``ball`` and ``axis`` lanes
-    must be disjoint per instance."""
+    sums; ``ball`` and ``axis`` entries must be disjoint per instance."""
     dt = w.dtype
     dim = w.shape[-1]
     if ball_mask is None:
@@ -146,11 +144,8 @@ def make_cone_args(
     mu_x=None, shift_x=None, ball_x=None, axis_x=None,
     dtype=jnp.float32,
 ):
-    """Per-instance cone overrides for the instance-ops (einsum) tier —
-    the jnp counterpart of the hetero kernel's lane-packed
-    ``pad_hetero_cone_params``/``pad_hetero_cone_masks`` operands, built
-    from the same inputs (and the same ``(cones, batch, nx, nu)``
-    argument order): ``mu_u``/``shift_u`` are ``(n_input_cones, B)``
+    """Per-instance cone overrides for the instance-ops (einsum) tier:
+    ``mu_u``/``shift_u`` are ``(n_input_cones, B)``
     rows (or None for static scalars), ``ball_u[c]`` a ``(B, nu)`` 0/1
     membership array, ``axis_u[c]`` a ``(B,)`` int axis index (ditto
     ``*_x`` on ``nx``). Returns ``(input_args, state_args)``: one
@@ -158,9 +153,9 @@ def make_cone_args(
     defaulted fields — a traced pytree for
     :func:`..solver.batched_ops.solve_instance_ops`'s ``cone_args``.
 
-    Validated at pack time like ``pad_hetero_cone_masks``: axis indices
-    must lie in ``[0, dim)`` and each instance's *effective* ball and axis
-    lanes (overridden or static) must be disjoint — the masked projection's
+    Validated at pack time: axis indices must lie in ``[0, dim)`` and each
+    instance's *effective* ball and axis entries (overridden or static)
+    must be disjoint — the masked projection's
     arithmetic silently corrupts on overlap."""
     import numpy as np
 

@@ -6,8 +6,8 @@ TinySolver). Differences, by design:
 
 - Arrays are **time-major** ``(N, nx)`` / ``(N-1, nu)`` instead of the reference's
   column-major ``(nx, N)`` Eigen matrices: the leading axis is the horizon, and a
-  batch axis is prepended by ``vmap``/sharding, so the trailing ``nx``/``nu`` axis
-  (or the batch axis in batch-last kernel layouts) maps onto TPU lanes.
+  batch axis is prepended by ``vmap``/sharding, so the batch is the leading
+  axis of every batched array.
 - State is immutable; every ADMM stage is a pure function ``state -> state``.
 - Shape/flag fields that must be trace-time constants (dims, iteration limits,
   bound-enable flags) live in :class:`Settings` as non-pytree metadata, the JAX
@@ -17,13 +17,34 @@ TinySolver). Differences, by design:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 Array = jax.Array
+
+
+def static_field(**kw) -> Any:
+    """A dataclass field kept out of the pytree: trace-time metadata (dims,
+    iteration limits, flags) that stays a Python value under ``jit``."""
+    return dataclasses.field(metadata={"static": True}, **kw)
+
+
+def pytree_dataclass(cls: type) -> type:
+    """Frozen dataclass registered as a JAX pytree, with a functional
+    ``replace``. Fields made with :func:`static_field` are pytree metadata;
+    every other field is a leaf."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")],
+    )
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return cls
 
 # Solver status codes (reference: src/tinympc/admm.cpp:114,136 — 11 = TINY_UNSOLVED,
 # 1 = TINY_SOLVED; a max-iter exit leaves status at 11 and returns exitflag 1).
@@ -31,7 +52,7 @@ UNSOLVED = 11
 SOLVED = 1
 
 
-@struct.dataclass
+@pytree_dataclass
 class Cache:
     """Precomputed infinite-horizon Riccati cache.
 
@@ -56,7 +77,7 @@ class Cache:
         return self.Quu_inv.shape[-1]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Settings:
     """Solver settings. Counterpart of TinySettings (reference:
     src/tinympc/types.hpp:39-47).
@@ -70,30 +91,27 @@ class Settings:
     ``alpha`` is OSQP-style over-relaxation (beyond-reference, off by
     default: 1.0 reproduces the reference schedule bit-for-bit). With
     ``alpha != 1`` the slack/dual stages see the relaxed iterate
-    ``alpha * u + (1 - alpha) * z_old`` (likewise for states). Measured on
-    chip (BASELINE.md round 5, B=2048): alpha=1.6 rescues *constraint-
-    bound* workloads where plain ADMM stalls — cold hovering at tol 0.01
-    goes from 0.6% to 56.9% solved within 500 iterations — but SLOWS easy
+    ``alpha * u + (1 - alpha) * z_old`` (likewise for states). It helps
+    *constraint-bound* workloads where plain ADMM stalls, but slows easy
     solves whose constraints are inactive (the slack settle becomes a
-    ``|1-alpha|`` geometric filter: ~3 -> ~9 iterations on the random-LTI
-    population) — use it where ADMM stalls, not as a blanket default.
-    Honored by the scan/batched, condensed, block, and fused tiers, the
-    missions built on them, and generated C++ projects (TINY_ALPHA);
-    the hetero-family kernels and the hetero/einsum adaptive-rho loops
-    raise on alpha != 1 (use the scan-tier adaptive loop there).
+    ``|1-alpha|`` geometric filter) — use it where ADMM stalls, not as a
+    blanket default. Honored by the scan/batched, condensed, block and
+    fused tiers, the missions built on them, the scan-tier adaptive-rho
+    loop and generated C++ projects (TINY_ALPHA); the instance-ops tier
+    and its adaptive-rho loop raise on alpha != 1.
     Static metadata — changing it recompiles.
     """
 
-    abs_pri_tol: Array = struct.field(default=1e-3)
-    abs_dua_tol: Array = struct.field(default=1e-3)
-    max_iter: int = struct.field(pytree_node=False, default=100)
-    check_termination: int = struct.field(pytree_node=False, default=1)
-    en_state_bound: bool = struct.field(pytree_node=False, default=True)
-    en_input_bound: bool = struct.field(pytree_node=False, default=True)
-    alpha: float = struct.field(pytree_node=False, default=1.0)
+    abs_pri_tol: Array = 1e-3
+    abs_dua_tol: Array = 1e-3
+    max_iter: int = static_field(default=100)
+    check_termination: int = static_field(default=1)
+    en_state_bound: bool = static_field(default=True)
+    en_input_bound: bool = static_field(default=True)
+    alpha: float = static_field(default=1.0)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Problem:
     """Time-invariant problem data + references + bounds.
 
@@ -132,7 +150,7 @@ class Problem:
         return self.Xref.shape[-2]
 
 
-@struct.dataclass
+@pytree_dataclass
 class State:
     """ADMM iterates + diagnostics: the mutable half of TinyWorkspace
     (reference: src/tinympc/types.hpp:52-81), carried functionally.

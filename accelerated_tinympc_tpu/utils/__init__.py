@@ -7,10 +7,13 @@ from .serialization import (  # noqa: F401
     save_pytree,
 )
 from .profiling import (  # noqa: F401
-    hetero_cost,
+    PEAKS,
+    device_info,
+    peaks,
+    require_gpu,
     solver_cost,
-    stream_cost,
     time_fn,
     trace,
 )
+from .compile_cache import enable_compile_cache  # noqa: F401
 from .debugging import debug_nans, finite_state, health_report  # noqa: F401

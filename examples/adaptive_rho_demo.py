@@ -24,6 +24,7 @@ from accelerated_tinympc_tpu.solver import admm, solve_adaptive_rho
 
 
 def main() -> None:
+    atm.utils.enable_compile_cache()
     problem, _ = random_lti_problem(
         seed=3, nx=8, nu=3, horizon=15, bound=5.0, q_scale=100.0, r_scale=0.1
     )

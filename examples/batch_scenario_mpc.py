@@ -1,9 +1,11 @@
-"""Batched scenario MPC — the TPU-native headline workload (no reference
-counterpart; the reference is one-problem-per-MCU, SURVEY.md §2): run
-thousands of perturbed quadrotor instances through the full receding-horizon
-loop simultaneously, one plant per instance, all on one chip.
+"""Batched scenario MPC — the headline workload (no reference counterpart;
+the reference is one-problem-per-MCU, SURVEY.md §2): run thousands of
+perturbed quadrotor instances through the full receding-horizon loop
+simultaneously, one plant per instance, all on one device.
 
-Uses the fused Pallas tier on TPU (falls back to the jnp tier elsewhere).
+``--tier auto`` uses the fused kernel on a GPU and the scan tier elsewhere
+(the kernel compiles only for the card; on the CPU it would run in the
+Pallas interpreter).
 
 Run: python examples/batch_scenario_mpc.py [--batch 4096] [--ticks 20]
 """
@@ -32,6 +34,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--tier", default="auto", choices=("auto", "fused", "jnp"))
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
+    print("device:", atm.utils.device_info())
 
     problem, cache, x0 = atm.models.quadrotor_hovering_setup()
     rng = np.random.default_rng(0)
@@ -39,8 +43,8 @@ def main() -> None:
         np.asarray(x0)[None] + 0.05 * rng.standard_normal((args.batch, 12)),
         jnp.float32,
     )
-    on_tpu = jax.devices()[0].platform != "cpu"
-    tier = args.tier if args.tier != "auto" else ("fused" if on_tpu else "jnp")
+    on_gpu = jax.devices()[0].platform == "gpu"
+    tier = args.tier if args.tier != "auto" else ("fused" if on_gpu else "jnp")
     settings = atm.Settings(max_iter=args.iters, check_termination=0)
 
     if tier == "fused":

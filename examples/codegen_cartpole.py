@@ -5,13 +5,15 @@ for the upright cartpole, build it, and run the emitted MPC demo.
 Unlike the reference (which copies Eigen + its own sources into the output,
 codegen.cpp:615-654), the generated project is dependency-free C++17.
 
-Run: python examples/codegen_cartpole.py [--out /tmp/tinympc_cartpole]
+Run: python examples/codegen_cartpole.py [--out DIR]  (default: a directory
+under the system temporary directory)
 """
 
 import argparse
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
@@ -22,9 +24,11 @@ from accelerated_tinympc_tpu.models import cartpole
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/tinympc_cartpole_project")
+    ap.add_argument("--out", default=str(pathlib.Path(tempfile.gettempdir())
+                                         / "tinympc_cartpole_project"))
     ap.add_argument("--no-build", action="store_true")
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
 
     out = tiny_codegen(
         cartpole.A, cartpole.B, cartpole.Q_DIAG, cartpole.R_DIAG,

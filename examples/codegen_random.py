@@ -3,12 +3,14 @@ examples/codegen_random.cpp, generalized): generate deployment projects for
 random stabilizable plants over a sweep of (nx, nu, N) shapes — the shape
 stress test for both the precompute and the emitted solver.
 
-Run: python examples/codegen_random.py [--out-root /tmp/tinympc_random]
+Run: python examples/codegen_random.py [--out-root DIR]  (default: a
+directory under the system temporary directory)
 """
 
 import argparse
 import pathlib
 import sys
+import tempfile
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
@@ -21,10 +23,12 @@ from accelerated_tinympc_tpu.models import random_lti_problem
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out-root", default="/tmp/tinympc_random")
+    ap.add_argument("--out-root", default=str(pathlib.Path(
+        tempfile.gettempdir()) / "tinympc_random"))
     ap.add_argument("--shapes", default="2x2x3,4x2x8,12x4x10,16x8x20",
                     help="comma-separated nx x nu x N")
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
 
     for spec in args.shapes.split(","):
         nx, nu, N = (int(v) for v in spec.split("x"))

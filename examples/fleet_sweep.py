@@ -2,26 +2,27 @@
 
 The reference binds one problem per process (reference:
 src/tinympc/tiny_wrapper.hpp:6); this example solves a fleet of *distinct*
-random LTI plants — a plant-uncertainty / design-space sweep — in single
-kernel dispatches: on-device Riccati precompute for every plant, adaptive
-per-instance early termination, optional SOC thrust cones, optional
-early-termination compaction, warm-started re-solves across a short
-receding-horizon loop.
+random LTI plants — a plant-uncertainty / design-space sweep — one batched
+dispatch per tick: on-device Riccati precompute for every plant, adaptive
+per-instance early termination, optional SOC thrust cones, warm-started
+re-solves across a short receding-horizon loop. ``--tier`` picks the fleet
+tier: ``scan`` (the default: vmapped scan sweeps) or ``instance_ops``
+(per-instance condensed operators).
 
 ``--cones`` additionally constrains each plant's first three inputs to a
 thrust cone with *per-instance* geometry: every lander draws its own tilt
 limit mu, and half the fleet has its thrust axis on a different input
 coordinate (per-instance ball/axis masks — heterogeneous constraint
-structure, not just parameters).
+structure, not just parameters). Per-instance geometry runs on the
+``instance_ops`` tier, which ``--cones`` selects.
 
 ``--drift 0.003`` additionally drifts every plant a little each tick and
-refreshes all caches online through ``TinyMPCFleet.set_plants`` (the
-Newton-Kleinman kernel warm from the current gains; destabilized
-instances fall back to the warm fixed point per lane) — the
-system-identification serving loop.
+refreshes all caches online through ``TinyMPCFleet.set_plants``
+(Newton-Kleinman warm from the current gains; destabilized instances fall
+back to the warm fixed point) — the system-identification serving loop.
 
 Run: python examples/fleet_sweep.py [--fleet 512] [--ticks 5]
-     [--compaction 25] [--cones] [--drift 0.003] [--interpret]
+     [--tier scan|instance_ops] [--cones] [--drift 0.003]
 """
 
 import argparse
@@ -31,8 +32,6 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 import accelerated_tinympc_tpu as atm
@@ -44,20 +43,16 @@ def main() -> None:
     ap.add_argument("--fleet", type=int, default=512)
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--horizon", type=int, default=10)
-    ap.add_argument("--compaction", type=int, default=0,
-                    help="cascade segment length (0 = one adaptive call)")
+    ap.add_argument("--tier", default="scan",
+                    choices=("scan", "instance_ops"))
     ap.add_argument("--cones", action="store_true",
                     help="per-instance thrust-cone geometry (mu + axis)")
     ap.add_argument("--drift", type=float, default=0.0,
                     help="per-tick random plant drift scale (online model "
                          "updates via set_plants + Newton cache refresh)")
-    ap.add_argument("--interpret", action="store_true")
-    ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (env JAX_PLATFORMS is "
-                         "ignored here; backend init is lazy so this works)")
     args = ap.parse_args()
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    atm.utils.enable_compile_cache()
+    print("device:", atm.utils.device_info())
 
     B, N = args.fleet, args.horizon
     nx, nu = 8, 3
@@ -97,8 +92,7 @@ def main() -> None:
         u_min=-2.0, u_max=2.0,
         settings=atm.Settings(max_iter=300, check_termination=1,
                               abs_pri_tol=5e-3, abs_dua_tol=5e-3),
-        compaction_segment=args.compaction,
-        interpret=args.interpret,
+        tier="instance_ops" if args.cones else args.tier,
         **cone_kw,
     )
     rng = np.random.default_rng(0)
@@ -110,9 +104,9 @@ def main() -> None:
         if args.drift and t > 0:
             # Online model drift: every plant wanders a little each tick
             # (the system-identification serving loop). set_plants
-            # refreshes all caches with the Newton-Kleinman kernel warm
-            # from the current gains; instances whose drift destabilized
-            # an old gain fall back to the warm fixed point automatically.
+            # refreshes all caches by Newton-Kleinman warm from the current
+            # gains; instances whose drift destabilized an old gain fall
+            # back to the warm fixed point automatically.
             A = (A + args.drift
                  * drift_rng.standard_normal(A.shape).astype(np.float32))
             Bm = (Bm + args.drift

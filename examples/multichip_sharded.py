@@ -1,7 +1,8 @@
-"""Multi-chip sharded batch solve (no reference counterpart — the reference
-has zero distribution, SURVEY.md §2): shard a large batch of MPC instances
-over a device mesh; the solve is communication-free, convergence stats are
-psum-reduced over ICI.
+"""Multi-device sharded batch solve (no reference counterpart — the
+reference has zero distribution, SURVEY.md §2): shard a large batch of MPC
+instances over a device mesh; the solve is communication-free, convergence
+stats are psum-reduced over the interconnect (NVLink between the cards of
+one host).
 
 On a CPU-only machine this demos against virtual devices:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -33,6 +34,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch-per-device", type=int, default=64)
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
 
     n_dev = jax.device_count()
     batch = args.batch_per_device * n_dev

@@ -2,9 +2,9 @@
 examples/quadrotor_hovering.cpp): 12-state Crazyflie-style LTI at 20 Hz,
 box-bounded inputs/states, hover setpoint z=2, 70 receding-horizon ticks.
 
-TPU-native differences: the whole 70-tick loop runs as ONE device program
-(lax.scan — no per-tick host dispatch), and the same script can run thousands
-of perturbed instances batched (see batch_scenario_mpc.py).
+Differences from the reference: the whole 70-tick loop runs as ONE device
+program (lax.scan — no per-tick host dispatch), and the same script can run
+thousands of perturbed instances batched (see batch_scenario_mpc.py).
 
 Run: python examples/quadrotor_hovering.py [--ticks 70] [--adaptive]
 """
@@ -31,6 +31,7 @@ def main() -> None:
                     help="reference default settings (tol 1e-3, check every "
                          "iter) instead of fixed 100 iterations")
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
 
     problem, cache, x0 = atm.models.quadrotor_hovering_setup(args.hz)
     settings = (

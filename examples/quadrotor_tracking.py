@@ -28,6 +28,7 @@ def main() -> None:
     ap.add_argument("--trajectory", default="quadrotor_20hz_y_axis_line")
     ap.add_argument("--adaptive", action="store_true")
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
 
     problem, cache, x0, Xref_total = atm.models.quadrotor_tracking_setup(
         trajectory=args.trajectory
@@ -41,9 +42,8 @@ def main() -> None:
     )
 
     Xref_dev = jnp.asarray(Xref_total, jnp.float32)
-    on_tpu = jax.devices()[0].platform not in ("cpu",)
-    if on_tpu and not args.adaptive:
-        # fused Pallas tier with the sliding window recomputed on device
+    if jax.devices()[0].platform == "gpu" and not args.adaptive:
+        # fused kernel tier with the sliding window recomputed on device
         from accelerated_tinympc_tpu.api import fused_mpc_rollout
         from accelerated_tinympc_tpu.ops import pad_problem
         from accelerated_tinympc_tpu.precompute import condensed_operators

@@ -15,15 +15,15 @@ The receding-horizon loop runs fully on device (`lax.scan` over ticks, plant
 sim fused in) with cone projections inside the ADMM slack stage
 (solver/cones.py).
 
-``--fleet N`` instead solves a dispersion fleet of N landers in one fused
-Pallas dispatch with the SOC projections *inside the kernel*
-(ops/fused_admm.py pad_cones) — the scenario-MPC shape: one kernel call,
-every instance's thrust-tilt and glideslope cones enforced on-chip.
+``--fleet N`` instead solves a dispersion fleet of N landers in one batched
+scan-tier dispatch with the SOC projections in every instance's slack stage
+— the scenario-MPC shape: one call, every instance's thrust-tilt and
+glideslope cones enforced.
 
 ``--fleet N --mission`` runs the whole receding-horizon descent of the
-fleet as ONE Pallas launch (ops/fused_rollout.py with cone_ops — round 5):
-per-tick dual reset, coned adaptive solve, and plant step all in-kernel,
-warm carries living in VMEM scratch between ticks.
+fleet as one device program (``mpc_rollout`` over the coned batched solve):
+per-tick dual reset, coned adaptive solve, and plant step under one
+``lax.scan``.
 
 Run: python examples/soc_landing.py [--ticks 60] [--horizon 15] [--fleet 0]
      [--mission]
@@ -72,76 +72,56 @@ def landing_problem(horizon: int, dt: float = 0.1):
     return problem, cache
 
 
-def fleet_solve(problem, cache, cones, n: int, iters: int,
-                interpret: bool) -> None:
-    """Dispersion fleet: n perturbed landers, one fused coned dispatch."""
-    from accelerated_tinympc_tpu.ops.fused_admm import (
-        FusedCarry, fused_solve, pad_cones, pad_problem,
-    )
-    from accelerated_tinympc_tpu.precompute import condensed_operators
-
-    ops = condensed_operators(
-        cache, np.asarray(problem.A), np.asarray(problem.B), problem.horizon
-    )
-    pp = pad_problem(problem, cache, ops)
-    cone_ops = pad_cones(pp, cones)
+def _fleet_x0s(n: int):
     rng = np.random.default_rng(0)
     base = np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])
-    x0s = jnp.asarray(
+    return jnp.asarray(
         base[None] + rng.standard_normal((n, 6)) * 0.3, jnp.float32
     )
-    res = fused_solve(
-        x0s, FusedCarry.zeros(n, pp), pp, max_iter=iters,
-        check_termination=2, cone_ops=cone_ops, interpret=interpret,
+
+
+def fleet_solve(problem, cache, cones, n: int, iters: int) -> None:
+    """Dispersion fleet: n perturbed landers, one batched coned solve."""
+    from accelerated_tinympc_tpu.solver.batched import (
+        init_state_batched, solve_batched,
     )
-    m = problem.horizon - 1
-    Z = np.asarray(res.carry.Z[:, : m * 3]).reshape(n, m, 3)
-    tilt_v = float(cone_violation(jnp.asarray(Z), cones.input_cones[0]))
-    solved = float(np.asarray(res.stats[:, 1]).mean())
-    it = np.asarray(res.stats[:, 0])
+
+    settings = atm.Settings(max_iter=iters, check_termination=2,
+                            en_input_bound=False, en_state_bound=False)
+    st = init_state_batched(n, 6, 3, problem.horizon)
+    st = st.replace(x=st.x.at[:, 0, :].set(_fleet_x0s(n)))
+    res = jax.jit(lambda s: solve_batched(
+        s, problem, cache, settings, project=cone_slack_update(cones)))(st)
+    tilt_v = float(cone_violation(res.znew, cones.input_cones[0]))
+    solved = float(np.mean(np.asarray(res.status) == atm.SOLVED))
+    it = np.asarray(res.iter)
     print(f"fleet {n}: solved {solved:.1%}  iters p50={np.median(it):.0f} "
-          f"max={it.max():.0f}  worst in-kernel tilt violation {tilt_v:.2e}")
+          f"max={it.max():.0f}  worst slack tilt violation {tilt_v:.2e}")
 
 
-def fleet_mission(problem, cache, cones, n: int, ticks: int, iters: int,
-                  interpret: bool) -> None:
-    """Whole coned descent mission of an n-lander fleet in ONE kernel
-    launch (in-kernel rollout, round 5)."""
-    from accelerated_tinympc_tpu.ops.fused_admm import (
-        FusedCarry, pad_cones, pad_problem,
-    )
-    from accelerated_tinympc_tpu.ops.fused_rollout import (
-        fused_rollout, rollout_ops,
-    )
-    from accelerated_tinympc_tpu.precompute import condensed_operators
+def fleet_mission(problem, cache, cones, n: int, ticks: int,
+                  iters: int) -> None:
+    """Whole coned descent mission of an n-lander fleet as one device
+    program (mpc_rollout over the coned batched solve)."""
+    from accelerated_tinympc_tpu.api import mpc_rollout
+    from accelerated_tinympc_tpu.solver.batched import solve_batched
 
-    ops = condensed_operators(
-        cache, np.asarray(problem.A), np.asarray(problem.B), problem.horizon
-    )
-    pp = pad_problem(problem, cache, ops)
-    cone_ops = pad_cones(pp, cones)
-    rops = rollout_ops(problem, pp)
-    rng = np.random.default_rng(0)
-    base = np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])
-    x0s = jnp.asarray(
-        base[None] + rng.standard_normal((n, 6)) * 0.3, jnp.float32
-    )
-    res = jax.block_until_ready(fused_rollout(
-        x0s, FusedCarry.zeros(n, pp), pp, rops, ticks,
-        max_iter=iters, check_termination=2, cone_ops=cone_ops,
-        interpret=interpret,
-    ))
-    us = np.asarray(res.us)                       # (T, n, 3)
-    tilt_v = float(cone_violation(jnp.asarray(us), cones.input_cones[0]))
-    m = problem.horizon - 1
-    Z = np.asarray(res.final.carry.Z[:, : m * 3]).reshape(n, m, 3)
-    slack_v = float(cone_violation(jnp.asarray(Z), cones.input_cones[0]))
-    pos = np.linalg.norm(np.asarray(res.x_final)[:, :3], axis=1)
-    it = np.asarray(res.iters)
-    print(f"mission fleet {n} x {ticks} ticks (one launch): "
+    settings = atm.Settings(max_iter=iters, check_termination=2,
+                            en_input_bound=False, en_state_bound=False)
+    project = cone_slack_update(cones)
+    st, xf, trace = jax.block_until_ready(jax.jit(lambda x: mpc_rollout(
+        problem, cache, settings, x, ticks, batched=True,
+        solver=lambda s, p: solve_batched(s, p, cache, settings,
+                                          project=project),
+    ))(_fleet_x0s(n)))
+    tilt_v = float(cone_violation(trace.u, cones.input_cones[0]))
+    slack_v = float(cone_violation(st.znew, cones.input_cones[0]))
+    pos = np.linalg.norm(np.asarray(xf)[:, :3], axis=1)
+    it = np.asarray(trace.iters)
+    print(f"mission fleet {n} x {ticks} ticks (one program): "
           f"final |pos| p50={np.median(pos):.3f} max={pos.max():.3f}  "
           f"iters/tick p50={np.median(it):.0f}  "
-          f"in-kernel slack tilt violation {slack_v:.2e}  "
+          f"slack tilt violation {slack_v:.2e}  "
           f"applied-u (pre-projection) tilt violation {tilt_v:.2e}")
 
 
@@ -151,13 +131,12 @@ def main() -> None:
     ap.add_argument("--horizon", type=int, default=15)
     ap.add_argument("--iters", type=int, default=500)
     ap.add_argument("--fleet", type=int, default=0,
-                    help="solve a fleet of this size in one fused dispatch")
+                    help="solve a fleet of this size in one batched dispatch")
     ap.add_argument("--mission", action="store_true",
-                    help="with --fleet: whole receding-horizon descent in "
-                         "ONE in-kernel rollout launch")
-    ap.add_argument("--interpret", action="store_true",
-                    help="Pallas interpreter (CPU) for the fleet mode")
+                    help="with --fleet: whole receding-horizon descent as "
+                         "one device program")
     args = ap.parse_args()
+    atm.utils.enable_compile_cache()
 
     problem, cache = landing_problem(args.horizon)
     g_hover = 3.0  # hover thrust in input units (gravity compensation)
@@ -175,10 +154,9 @@ def main() -> None:
         cset = ConeSet(input_cones=(tilt,), state_cones=(glide,))
         if args.mission:
             fleet_mission(problem, cache, cset, args.fleet, args.ticks,
-                          min(args.iters, 100), args.interpret)
+                          min(args.iters, 100))
         else:
-            fleet_solve(problem, cache, cset, args.fleet, args.iters,
-                        args.interpret)
+            fleet_solve(problem, cache, cset, args.fleet, args.iters)
         return
 
     x0 = jnp.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0], jnp.float32)

@@ -57,7 +57,11 @@ extern "C" int tiny_codegen(int nx, int nu, int N,
     const int has_xb = (x_min != nullptr && x_max != nullptr) ? 1 : 0;
     const int has_ub = (u_min != nullptr && u_max != nullptr) ? 1 : 0;
 
-    char argfile[] = "/tmp/tiny_codegen_args_XXXXXX";
+    // The argument file goes to $TMPDIR (/tmp when it is unset).
+    const char* tmpdir = std::getenv("TMPDIR");
+    std::string tmpl = std::string(tmpdir && *tmpdir ? tmpdir : "/tmp") +
+                       "/tiny_codegen_args_XXXXXX";
+    char* argfile = &tmpl[0];
     int fd = mkstemp(argfile);
     if (fd < 0) {
         std::perror("tiny_codegen: mkstemp");
@@ -111,7 +115,7 @@ extern "C" int tiny_codegen(int nx, int nu, int N,
                              (old && *old ? std::string(":") + old : "");
             setenv("PYTHONPATH", pp.c_str(), 1);
         }
-        // The generator runs on CPU; keep any TPU plugin out of the child.
+        // The generator runs on CPU; keep any accelerator out of the child.
         setenv("JAX_PLATFORMS", "cpu", 1);
         execlp(py, py, "-m", "accelerated_tinympc_tpu.api.codegen_cli",
                argfile, output_dir, (char*)nullptr);

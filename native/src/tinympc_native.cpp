@@ -1,6 +1,6 @@
 // tinympc_native: runtime-dimensioned host-side ADMM MPC solver.
 //
-// First-class native runtime component of accelerated_tinympc_tpu (the TPU
+// First-class native runtime component of accelerated_tinympc_tpu (the JAX
 // package's C++ counterpart for host deployment and fast CPU cross-checks).
 // Semantics match the TinyMPC ADMM schedule the JAX engine implements
 // (documented against reference src/tinympc/admm.cpp in solver/admm.py):

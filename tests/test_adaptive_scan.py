@@ -84,8 +84,7 @@ def test_newton_matches_fixed_point_refresh(plants):
 
 
 def test_rescues_at_uncovered_shape():
-    """The capability cell no other adaptive tier covers: long horizon
-    (N=96) AND nx=18 (> the hetero tier's slab limit). Mis-scaled rho
+    """A long horizon (N=96) and a wide state (nx=18) at once. Mis-scaled rho
     instances converge via adaptation where fixed rho does not in the
     same budget."""
     from accelerated_tinympc_tpu.solver.batched import (

@@ -1,9 +1,9 @@
-"""End-to-end golden parity: the TPU engine (f32) vs trajectories dumped from the
+"""End-to-end golden parity: the engine (f32) vs trajectories dumped from the
 compiled, unmodified reference solver (double; generated cartpole code: float).
 
 Goldens produced by tools/golden/golden_quadrotor.cpp (linked against
 /root/reference/src/tinympc/admm.cpp) and the reference codegen's emitted
-cartpole project. Parity bar from BASELINE.md: max control-input error < 1e-4 at
+cartpole project. Parity bar: max control-input error < 1e-4 at
 matched horizon/iteration count.
 """
 
@@ -20,7 +20,7 @@ from accelerated_tinympc_tpu.precompute import riccati_cache
 
 from golden_utils import load_solve0_csv, load_traj_csv, run_mpc_loop
 
-U_TOL = 1e-4  # BASELINE.md control-parity bound
+U_TOL = 1e-4  # control-parity bound
 
 
 class TestHoveringFixedIterations:
@@ -77,7 +77,7 @@ class TestAdaptiveScheduleExactF64:
     residual checks (reference: src/tinympc/admm.cpp:91-109) and early-exit
     semantics leave no room for disagreement once the 1e-7-level f32 iterate
     drift is removed. Retires the f32 tier's 10% knife-edge allowance as the
-    best available schedule-parity bound (VERDICT r2 #6)."""
+    best available schedule-parity bound."""
 
     def test_hovering_iteration_counts_exact(self):
         import jax
@@ -190,7 +190,7 @@ class TestCartpole:
 
 
 class TestFusedVsReferenceGolden:
-    """The fused Pallas tier (via the interpreter) reproduces the reference
+    """The fused kernel tier (via the interpreter) reproduces the reference
     C++ binary end-to-end: 70 hovering ticks at fixed 50 iterations against
     the golden trajectory dumped from the unmodified reference solver."""
 
@@ -245,7 +245,7 @@ class TestFusedAdaptiveVsReferenceGolden:
             res = fused_solve(
                 x, carry.reset_duals(), pp, max_iter=100,
                 check_termination=1, abs_pri_tol=1e-3, abs_dua_tol=1e-3,
-                batch_tile=1, interpret=True,
+                interpret=True,
             )
             carry = res.carry
             u0 = res.U[:, :4]

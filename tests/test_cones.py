@@ -182,9 +182,11 @@ def test_batched_matches_single():
 
 
 def test_api_cones():
-    """TinyMPC surfaces cones on every tier: the solved trajectory
-    satisfies the cone on scan, and the fused tier (in-kernel projection,
-    ops/fused_admm.py pad_cones) matches the scan schedule and controls."""
+    """TinyMPC surfaces cones on the scan and block tiers (same schedule
+    and controls); the fused kernel runs box projections only and refuses
+    cones."""
+    import pytest
+
     problem, cache = _landing_setup()
     cone = Cone(ball=(0, 1), axis=2, mu=1.0)
     cones = ConeSet(input_cones=(cone,))
@@ -192,31 +194,33 @@ def test_api_cones():
         max_iter=1000, check_termination=1,
         en_input_bound=False, en_state_bound=False,
     )
+    x0 = np.asarray([3.0, -2.0, 4.0, -1.0, 1.0, -1.5], np.float32)
     mpc = atm.TinyMPC.from_parts(
         problem, cache, settings=settings, cones=cones
     )
-    mpc.set_x0(np.asarray([3.0, -2.0, 4.0, -1.0, 1.0, -1.5], np.float32))
+    mpc.set_x0(x0)
     info = mpc.solve()
     assert info["solved"]
     assert float(cone_violation(mpc.state.znew, cone)) <= 1e-6
 
-    fused = atm.TinyMPC.from_parts(
-        problem, cache, settings=settings, tier="fused", interpret=True,
+    blk = atm.TinyMPC.from_parts(
+        problem, cache, settings=settings, tier="block", block=5,
         cones=cones,
     )
-    fused.set_x0(np.asarray([3.0, -2.0, 4.0, -1.0, 1.0, -1.5], np.float32))
-    fi = fused.solve()
-    assert bool(np.all(fi["solved"]))
-    assert int(fi["iterations"][0]) == info["iterations"]
+    blk.set_x0(x0)
+    bi = blk.solve()
+    assert bi["solved"] and bi["iterations"] == info["iterations"]
     np.testing.assert_allclose(
-        np.asarray(fused.get_u()), np.asarray(mpc.get_u()),
+        np.asarray(blk.get_u()), np.asarray(mpc.get_u()),
         rtol=0, atol=5e-5,
     )
+    with pytest.raises(ValueError, match="box projections only"):
+        atm.TinyMPC.from_parts(problem, cache, tier="fused", cones=cones)
 
 
 def test_api_per_instance_cone_params():
-    """TinyMPC(cone_mu=...) — a per-instance tilt-limit sweep through the
-    batched fused tier matches per-instance scan runs at each static mu;
+    """A per-instance tilt-limit sweep (cone_mu) through the fleet's
+    instance-ops tier matches per-instance scan runs at each static mu;
     invalid configurations raise."""
     import pytest
 
@@ -226,55 +230,42 @@ def test_api_per_instance_cone_params():
     B = 6
     mus = np.linspace(0.4, 1.2, B).astype(np.float32)
     settings = atm.Settings(max_iter=200, check_termination=2,
-                            abs_pri_tol=5e-3, abs_dua_tol=5e-3,
-                            en_input_bound=False, en_state_bound=False)
+                            abs_pri_tol=5e-3, abs_dua_tol=5e-3)
     rng = np.random.default_rng(7)
     x0s = jnp.asarray(
         np.asarray([3.0, -2.0, 4.0, -1.0, 1.0, -1.5])[None]
         + rng.standard_normal((B, 6)) * 0.4, jnp.float32,
     )
-    mpc = atm.TinyMPC.from_parts(
-        problem, cache, settings=settings, tier="fused", batch=B,
-        interpret=True, cones=cones, cone_mu=mus[None],
+    rep = lambda a: np.repeat(np.asarray(a)[None], B, axis=0)
+    fleet = atm.TinyMPCFleet.setup(
+        rep(problem.A), rep(problem.B), rep(problem.Q), rep(problem.R),
+        rho=float(cache.rho), horizon=problem.horizon, settings=settings,
+        tier="instance_ops", cones=cones, cone_mu=mus[None], polish=False,
     )
-    mpc.set_x0(x0s)
-    info = mpc.solve()
+    fleet.set_x0(x0s)
+    info = fleet.solve()
     for b in range(B):
         cset = ConeSet(input_cones=(base._replace(mu=float(mus[b])),))
         one = atm.TinyMPC.from_parts(
-            problem, cache, settings=settings, cones=cset
+            problem, cache, settings=fleet.settings, cones=cset
         )
         one.set_x0(x0s[b])
         oi = one.solve()
         assert int(info["iterations"][b]) == int(oi["iterations"]), b
         np.testing.assert_allclose(
-            np.asarray(mpc.get_u())[b], np.asarray(one.get_u()),
-            rtol=0, atol=5e-5, err_msg=f"instance {b}",
+            np.asarray(fleet.get_u())[b], np.asarray(one.get_u()),
+            rtol=0, atol=1e-4, err_msg=f"instance {b}",
         )
     with pytest.raises(ValueError, match="pass cones"):
-        atm.TinyMPC.from_parts(problem, cache, tier="fused", batch=B,
-                               cone_mu=mus[None])
-    with pytest.raises(ValueError, match="batched fused tier"):
-        atm.TinyMPC.from_parts(problem, cache, cones=cones,
-                               cone_mu=mus[None])
-    # Compaction composes: the cascade gathers the per-instance cone
-    # params with the survivors — iteration-exact vs the monolithic call.
-    casc = atm.TinyMPC.from_parts(
-        problem, cache, tier="fused", batch=B, cones=cones,
-        cone_mu=mus[None], compaction_segment=10, interpret=True,
-        settings=settings,
-    )
-    casc.set_x0(x0s)
-    ci = casc.solve()
-    np.testing.assert_array_equal(ci["iterations"], info["iterations"])
-    np.testing.assert_allclose(
-        np.asarray(casc.get_u()), np.asarray(mpc.get_u()),
-        rtol=0, atol=5e-5,
-    )
+        atm.TinyMPCFleet.setup(
+            rep(problem.A), rep(problem.B), rep(problem.Q), rep(problem.R),
+            rho=1.0, horizon=problem.horizon, cone_mu=mus[None],
+            tier="instance_ops", polish=False,
+        )
 
 
 def test_condensed_tier_cones():
-    """The condensed (MXU-operator) tier supports cones: same solution as
+    """The condensed (dense-operator) tier supports cones: same solution as
     the scan tier, reachable through TinyMPC(tier="condensed", cones=...)."""
     problem, cache = _landing_setup()
     cone = Cone(ball=(0, 1), axis=2, mu=1.0)
@@ -347,190 +338,25 @@ def test_state_cone():
     assert float(cone_violation(res.vnew, cone)) <= 1e-6
 
 
-class TestFusedCones:
-    """SOC cones inside the fused Pallas kernel (ops/fused_admm.py
-    pad_cones/_cone_apply): parity against the scan tier's project
-    override, fixed and adaptive modes, input + state cones, packed
-    instances (the landing plant packs g=3 per 128-lane row)."""
-
-    def _fused(self, problem, cache, cones, x0s, **kw):
-        from accelerated_tinympc_tpu.ops.fused_admm import (
-            FusedCarry, fused_solve, pad_cones, pad_problem,
-        )
-        from accelerated_tinympc_tpu.precompute import condensed_operators
-
-        ops = condensed_operators(
-            cache, np.asarray(problem.A), np.asarray(problem.B),
-            problem.horizon,
-        )
-        pp = pad_problem(problem, cache, ops)
-        assert pp.g > 1  # the packed layout is what's under test
-        cone_ops = pad_cones(pp, cones)
-        carry = FusedCarry.zeros(x0s.shape[0], pp)
-        return pp, fused_solve(
-            x0s, carry, pp, interpret=True, cone_ops=cone_ops, **kw
-        )
-
-    def _scan(self, problem, cache, cones, x0s, settings):
-        B = x0s.shape[0]
-        st = init_state_batched(B, 6, 3, 15)
-        st = st.replace(x=st.x.at[:, 0, :].set(x0s))
-        return jax.jit(
-            lambda s: solve_batched(
-                s, problem, cache, settings,
-                project=cone_slack_update(cones),
-            )
-        )(st)
-
-    def _x0s(self):
-        rng = np.random.default_rng(7)
-        base = np.asarray([3.0, -2.0, 4.0, -1.0, 1.0, -1.5])
-        return jnp.asarray(
-            base[None] + rng.standard_normal((6, 6)) * 0.4, jnp.float32
-        )
-
-    def test_fixed_mode_parity(self):
-        problem, cache = _landing_setup()
-        cones = ConeSet(input_cones=(Cone(ball=(0, 1), axis=2, mu=1.0),))
-        x0s = self._x0s()
-        settings = atm.Settings(max_iter=50, check_termination=0)
-        pp, got = self._fused(
-            problem, cache, cones, x0s, max_iter=50, check_termination=0
-        )
-        want = self._scan(problem, cache, cones, x0s, settings)
-        from accelerated_tinympc_tpu.ops.fused_admm import unpad_controls
-
-        np.testing.assert_allclose(
-            np.asarray(got.U[:, :42]),
-            np.asarray(want.u.reshape(6, -1)),
-            rtol=0, atol=2e-5,
-        )
-        # The slack iterate is the cone-projected quantity (U reaches the
-        # cone only at consensus); 50 fixed iterations leave U short of it.
-        assert float(
-            cone_violation(
-                np.asarray(got.carry.Z[:, :42]).reshape(6, 14, 3),
-                cones.input_cones[0],
-            )
-        ) <= 1e-5
-
-    def test_adaptive_mode_parity(self):
-        """Identical check schedule (iteration counts) and controls vs the
-        scan tier in adaptive mode with input + state cones."""
-        problem, cache = _landing_setup()
-        cones = ConeSet(
-            input_cones=(Cone(ball=(0, 1), axis=2, mu=1.0),),
-            state_cones=(Cone(ball=(0, 1), axis=2, mu=2.5),),
-        )
-        x0s = self._x0s() * 0.5 + jnp.asarray(
-            [[0.0, 0.0, 2.0, 0.0, 0.0, 0.0]], jnp.float32
-        )
-        settings = atm.Settings(max_iter=300, check_termination=2)
-        pp, got = self._fused(
-            problem, cache, cones, x0s, max_iter=300, check_termination=2
-        )
-        want = self._scan(problem, cache, cones, x0s, settings)
-        np.testing.assert_array_equal(
-            np.asarray(got.stats[:, 0], np.int32), np.asarray(want.iter)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got.stats[:, 1]) > 0.5,
-            np.asarray(want.status) == atm.types.SOLVED,
-        )
-        np.testing.assert_allclose(
-            np.asarray(got.U[:, :42]),
-            np.asarray(want.u.reshape(6, -1)),
-            rtol=0, atol=2e-5,
-        )
-
-    def test_per_instance_params(self):
-        """Per-instance cone mu/shift in the fused kernel
-        (fused_solve(cone_mu_u=...)): arrays encoding the static scalars
-        reproduce the static path; a per-instance mu sweep matches scan
-        runs at each instance's static mu; adaptive schedules stay exact."""
-        problem, cache = _landing_setup()
-        base = Cone(ball=(0, 1), axis=2, mu=1.0, shift=0.5)
-        cones = ConeSet(input_cones=(base,))
-        x0s = self._x0s()
-        B = x0s.shape[0]
-        kw = dict(max_iter=40, check_termination=0)
-
-        _, plain = self._fused(problem, cache, cones, x0s, **kw)
-        _, enc = self._fused(
-            problem, cache, cones, x0s,
-            cone_mu_u=np.full((1, B), 1.0, np.float32),
-            cone_shift_u=np.full((1, B), 0.5, np.float32), **kw,
-        )
-        np.testing.assert_allclose(
-            np.asarray(enc.U), np.asarray(plain.U), rtol=0, atol=1e-6
-        )
-
-        mus = np.linspace(0.4, 1.2, B).astype(np.float32)
-        _, got = self._fused(
-            problem, cache, cones, x0s, cone_mu_u=mus[None], **kw
-        )
-        settings = atm.Settings(max_iter=40, check_termination=0)
-        for b in range(B):
-            cset = ConeSet(input_cones=(base._replace(mu=float(mus[b])),))
-            want = self._scan(problem, cache, cset, x0s[b:b + 1], settings)
-            np.testing.assert_allclose(
-                np.asarray(got.U[b, :42]),
-                np.asarray(want.u.reshape(1, -1)[0]),
-                rtol=0, atol=2e-5, err_msg=f"instance {b}",
-            )
-        # The sweep genuinely binds (tightest vs loosest differ).
-        assert float(np.max(np.abs(
-            np.asarray(got.U[0, :42]) - np.asarray(plain.U[0, :42])
-        ))) > 1e-4
-
-        # Adaptive mode: schedule parity per instance vs the scan tier.
-        sets_a = atm.Settings(max_iter=200, check_termination=2,
-                              abs_pri_tol=5e-3, abs_dua_tol=5e-3)
-        _, ga = self._fused(
-            problem, cache, cones, x0s, cone_mu_u=mus[None],
-            max_iter=200, check_termination=2,
-            abs_pri_tol=5e-3, abs_dua_tol=5e-3,
-        )
-        for b in range(B):
-            cset = ConeSet(input_cones=(base._replace(mu=float(mus[b])),))
-            want = self._scan(problem, cache, cset, x0s[b:b + 1], sets_a)
-            assert int(np.asarray(ga.stats[b, 0])) == int(want.iter[0]), b
-            np.testing.assert_allclose(
-                np.asarray(ga.U[b, :42]),
-                np.asarray(want.u.reshape(1, -1)[0]),
-                rtol=0, atol=2e-5, err_msg=f"instance {b}",
-            )
-
-
-def test_fused_rollout_with_cones():
-    """Receding-horizon fused rollout with in-kernel cones: every applied
-    control's slack obeys the thrust cone across all ticks, and the lander
-    descends toward the pad."""
-    from accelerated_tinympc_tpu.api import fused_mpc_rollout
-    from accelerated_tinympc_tpu.ops.fused_admm import pad_cones, pad_problem
-    from accelerated_tinympc_tpu.precompute import condensed_operators
+def test_coned_mission_scan_tier():
+    """Receding-horizon mission with a thrust cone on the scan tier
+    (mpc_rollout with the cone projection as the per-tick solver): every
+    tick's slack obeys the cone, and the landers descend toward the pad."""
+    from accelerated_tinympc_tpu.api import mpc_rollout
 
     problem, cache = _landing_setup()
     cones = ConeSet(input_cones=(Cone(ball=(0, 1), axis=2, mu=1.0),))
-    ops = condensed_operators(
-        cache, np.asarray(problem.A), np.asarray(problem.B), problem.horizon
-    )
-    pp = pad_problem(problem, cache, ops)
-    cone_ops = pad_cones(pp, cones)
+    settings = atm.Settings(max_iter=150, check_termination=0)
+    project = cone_slack_update(cones)
     x0s = jnp.asarray([[3.0, -2.0, 6.0, -1.0, 1.0, -1.5],
                        [1.0, 2.0, 5.0, 0.5, -0.5, -1.0]], jnp.float32)
-    xf, us, carry = fused_mpc_rollout(
-        pp, x0s, 25, problem=problem, max_iter=150, interpret=True,
-        cone_ops=cone_ops,
-    )
-    # Slack iterate (the projected quantity) obeys the cone at every tick's
-    # final iteration; controls track it to ADMM-consensus tolerance.
-    m = problem.horizon - 1
-    Z = np.asarray(carry.Z[:, : m * 3]).reshape(2, m, 3)
-    assert float(cone_violation(jnp.asarray(Z), cones.input_cones[0])) <= 1e-5
-    assert float(cone_violation(us, cones.input_cones[0])) < 5e-2
-    # The fleet descends (altitude shrinks over the 25 ticks; full touchdown
-    # takes ~60, see examples/soc_landing.py).
+    st, xf, trace = jax.jit(lambda x: mpc_rollout(
+        problem, cache, settings, x, 25, batched=True,
+        solver=lambda s, p: solve_batched(s, p, cache, settings,
+                                          project=project),
+    ))(x0s)
+    assert float(cone_violation(st.znew, cones.input_cones[0])) <= 1e-5
+    assert float(cone_violation(trace.u, cones.input_cones[0])) < 5e-2
     assert float(xf[0, 2]) < float(x0s[0, 2]) - 1.0
     assert float(xf[1, 2]) < float(x0s[1, 2]) - 0.2
 
@@ -572,37 +398,6 @@ def test_aot_export_with_cones(tmp_path):
     np.testing.assert_array_equal(np.asarray(got["u"]), np.asarray(want.u))
     np.testing.assert_array_equal(
         np.asarray(got["iterations"]), np.asarray(want.iter)
-    )
-
-
-def test_api_cones_with_compaction():
-    """TinyMPC fused tier: cones + early-termination compaction compose
-    (identical schedules and controls vs the monolithic coned call)."""
-    problem, cache = _landing_setup()
-    cones = ConeSet(input_cones=(Cone(ball=(0, 1), axis=2, mu=1.0),))
-    settings = atm.Settings(
-        max_iter=200, check_termination=2,
-        en_input_bound=False, en_state_bound=False,
-    )
-    rng = np.random.default_rng(8)
-    B2 = 8
-    x0s = jnp.asarray(
-        np.asarray([3.0, -2.0, 4.0, -1.0, 1.0, -1.5])[None]
-        + rng.standard_normal((B2, 6)) * np.repeat([0.05, 0.8], 4)[:, None],
-        jnp.float32,
-    )
-    kw = dict(settings=settings, batch=B2, tier="fused", interpret=True,
-              cones=cones)
-    mono = atm.TinyMPC.from_parts(problem, cache, **kw)
-    casc = atm.TinyMPC.from_parts(problem, cache, compaction_segment=10, **kw)
-    for m in (mono, casc):
-        m.set_x0(x0s)
-    i1 = mono.solve()
-    i2 = casc.solve()
-    np.testing.assert_array_equal(i1["iterations"], i2["iterations"])
-    np.testing.assert_allclose(
-        np.asarray(mono.get_u()), np.asarray(casc.get_u()),
-        rtol=0, atol=5e-6,
     )
 
 
@@ -661,28 +456,20 @@ def test_cone_override_validation():
     import pytest
 
     import accelerated_tinympc_tpu as atm
-    from accelerated_tinympc_tpu.ops.hetero_admm import (
-        pad_hetero_cone_masks,
-    )
     from accelerated_tinympc_tpu.solver.cones import make_cone_args
 
     B, nx, nu = 6, 12, 4
     cones = ConeSet(input_cones=(Cone(ball=(0, 1), axis=2, mu=0.5),))
     axis_oob = np.full(B, nu, np.int64)          # one past the end
     axis_overlap = np.zeros(B, np.int64)         # inside the static ball
-    for fn in (
-        lambda **kw: pad_hetero_cone_masks(cones, B, nx, nu, **kw),
-        lambda **kw: make_cone_args(cones, B, nx, nu, **kw),
-    ):
-        with pytest.raises(ValueError, match="axis indices"):
-            fn(axis_u=[axis_oob])
-        with pytest.raises(ValueError, match="overlap"):
-            fn(axis_u=[axis_overlap])
+    fn = lambda **kw: make_cone_args(cones, B, nx, nu, **kw)
+    with pytest.raises(ValueError, match="axis indices"):
+        fn(axis_u=[axis_oob])
+    with pytest.raises(ValueError, match="overlap"):
+        fn(axis_u=[axis_overlap])
     # Disjoint override of both passes.
     ball = np.zeros((B, nu), np.float32)
     ball[:, [1, 2]] = 1.0
-    pad_hetero_cone_masks(cones, B, nx, nu, ball_u=[ball],
-                          axis_u=[axis_overlap])
     make_cone_args(cones, B, nx, nu, ball_u=[ball], axis_u=[axis_overlap])
     # Fleet: overrides without cones= is an error, not a silent drop.
     rng = np.random.default_rng(0)

@@ -1,7 +1,8 @@
 """Fleet API (api/fleet.py): the per-instance-plant capability behind the
-TinyMPC-style surface — distinct plants, both tiers, cones, adaptive rho,
-compaction. The reference's one-problem-per-process limitation inverted
-(reference: src/tinympc/tiny_wrapper.hpp:6)."""
+TinyMPC-style surface — distinct plants, every fleet tier, cones, adaptive
+rho, plant refresh, on-device missions. The reference's
+one-problem-per-process limitation inverted (reference:
+src/tinympc/tiny_wrapper.hpp:6)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,21 +28,20 @@ def plants():
 
 
 def test_fleet_tiers_agree(plants):
-    """hetero and instance_ops tiers produce matching per-instance results
-    (distinct plants, adaptive mode, identical schedules)."""
+    """scan (default) and instance_ops tiers produce matching per-instance
+    results (distinct plants, adaptive mode, identical schedules)."""
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=150, check_termination=2,
                         abs_pri_tol=5e-3, abs_dua_tol=5e-3)
     fleets = {}
-    for tier in ("hetero", "instance_ops"):
+    for tier in ("scan", "instance_ops"):
         f = atm.TinyMPCFleet.setup(
             A, Bm, Q, R, rho=1.0, horizon=N,
             u_min=-2.0, u_max=2.0, settings=sets, tier=tier,
-            interpret=True,
         )
         f.set_x0(x0s)
         fleets[tier] = (f, f.solve())
-    fh, ih = fleets["hetero"]
+    fh, ih = fleets["scan"]
     fo, io = fleets["instance_ops"]
     np.testing.assert_array_equal(ih["iterations"], io["iterations"])
     np.testing.assert_array_equal(ih["solved"], io["solved"])
@@ -51,33 +51,36 @@ def test_fleet_tiers_agree(plants):
 
 
 def test_fleet_warm_start_and_compaction(plants):
-    """Warm-started re-solve protocol + the compaction cascade through the
-    fleet surface (iteration counts match the plain path bit-for-bit)."""
+    """Warm-started re-solve protocol through the fleet surface on the
+    default (scan) tier vs instance_ops."""
+    test_fleet_warm_start_every_tier(plants, "instance_ops")
+
+
+@pytest.mark.parametrize("tier", ["scan", "instance_ops", "block"])
+def test_fleet_warm_start_every_tier(plants, tier):
+    """Warm-started re-solve protocol through the fleet surface on every
+    tier: carries persist, duals reset, and the warm re-solve follows the
+    same schedule as the scan tier's."""
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=200, check_termination=2,
                         abs_pri_tol=5e-3, abs_dua_tol=5e-3)
-    plain = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
-    )
-    casc = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
-        compaction_segment=10,
-    )
-    for f in (plain, casc):
-        f.set_x0(x0s)
-    i1 = plain.solve()
-    i2 = casc.solve()
+    ref = atm.TinyMPCFleet.setup(A, Bm, Q, R, rho=1.0, horizon=N,
+                                 settings=sets, polish=False)
+    f = atm.TinyMPCFleet.setup(A, Bm, Q, R, rho=1.0, horizon=N,
+                               settings=sets, tier=tier, polish=False,
+                               block=5)
+    for g in (ref, f):
+        g.set_x0(x0s)
+    i1, i2 = ref.solve(), f.solve()
     np.testing.assert_array_equal(i1["iterations"], i2["iterations"])
-    np.testing.assert_array_equal(
-        np.asarray(plain.get_u()), np.asarray(casc.get_u())
-    )
-    # warm re-solve: carries persist, duals reset
-    for f in (plain, casc):
-        f.reset_duals()
-        f.set_x0(x0s * 0.9)
-    j1 = plain.solve()
-    j2 = casc.solve()
+    for g in (ref, f):
+        g.reset_duals()
+        g.set_x0(x0s * 0.9)
+    j1, j2 = ref.solve(), f.solve()
     np.testing.assert_array_equal(j1["iterations"], j2["iterations"])
+    assert j2["iterations"].mean() < i2["iterations"].mean()
+    np.testing.assert_allclose(np.asarray(ref.get_u()), np.asarray(f.get_u()),
+                               rtol=0, atol=1e-4)
 
 
 def test_fleet_adaptive_rho(plants):
@@ -89,7 +92,7 @@ def test_fleet_adaptive_rho(plants):
     f = atm.TinyMPCFleet.setup(
         A, Bm, Q, R,
         rho=np.asarray([1.0] * 6 + [1e-3] * 3 + [1e3] * 3, np.float32),
-        horizon=N, settings=sets, tier="instance_ops", interpret=True,
+        horizon=N, settings=sets, tier="instance_ops",
     )
     f.set_x0(x0s)
     info = f.solve_adaptive_rho(chunk=25, max_rounds=40)
@@ -99,7 +102,8 @@ def test_fleet_adaptive_rho(plants):
 
 
 def test_fleet_cones(plants):
-    """SOC cones through the fleet surface (hetero kernel)."""
+    """SOC cones through the fleet surface (default scan tier, shared
+    ConeSet)."""
     from accelerated_tinympc_tpu.solver.cones import (
         Cone, ConeSet, cone_violation,
     )
@@ -110,7 +114,7 @@ def test_fleet_cones(plants):
     sets = atm.Settings(max_iter=150, check_termination=2,
                         abs_pri_tol=5e-3, abs_dua_tol=5e-3)
     f = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
+        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets,
         cones=cones,
     )
     f.set_x0(x0s)
@@ -122,29 +126,26 @@ def test_fleet_cones(plants):
 
 
 def test_fleet_rollout_on_device(plants):
-    """On-device fleet rollout (lax.scan over ticks, hetero kernel inside)
-    matches a host-driven tick loop through the fleet API."""
+    """On-device fleet rollout (lax.scan over ticks, scan-tier solve with
+    per-instance plants inside) matches a host-driven tick loop through the
+    fleet API."""
     from accelerated_tinympc_tpu.api import fleet_mpc_rollout
-    from accelerated_tinympc_tpu.ops.hetero_admm import pad_hetero_problem
 
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=25, check_termination=0)
-    f = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
-    )
+    f = atm.TinyMPCFleet.setup(A, Bm, Q, R, rho=1.0, horizon=N,
+                               settings=sets)
     ticks = 4
-    xf, us, carry = fleet_mpc_rollout(
-        f._hp, f.problem, jnp.asarray(x0s), ticks,
-        max_iter=25, interpret=True,
-    )
-    # host loop replica
+    _st, xf, trace = jax.jit(
+        lambda x: fleet_mpc_rollout(f.problem, f.cache, sets, x, ticks)
+    )(jnp.asarray(x0s))
     x = jnp.asarray(x0s)
     for t in range(ticks):
         f.set_x0(x)
         f.solve()
         u0 = f.get_u()[:, 0, :]
         np.testing.assert_allclose(
-            np.asarray(us[t]), np.asarray(u0), rtol=0, atol=1e-6
+            np.asarray(trace.u[t]), np.asarray(u0), rtol=0, atol=1e-5
         )
         x = (jnp.einsum("bij,bj->bi", f.problem.A, x)
              + jnp.einsum("bij,bj->bi", f.problem.B, u0))
@@ -155,30 +156,29 @@ def test_fleet_rollout_on_device(plants):
 
 
 def test_fleet_rollout_adaptive_matches_host(plants):
-    """fleet_mpc_rollout(check_termination>0) drives each tick through the
-    hetero kernel's per-instance freezing mode; ticks must match a host loop
-    running the fleet API at the same termination settings."""
+    """fleet_mpc_rollout with check_termination > 0 gives each tick the
+    per-instance early exit; ticks must match a host loop running the fleet
+    API at the same termination settings."""
     from accelerated_tinympc_tpu.api import fleet_mpc_rollout
 
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=60, check_termination=2,
                         abs_pri_tol=1e-3, abs_dua_tol=1e-3)
-    f = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
-    )
+    f = atm.TinyMPCFleet.setup(A, Bm, Q, R, rho=1.0, horizon=N,
+                               settings=sets)
     ticks = 3
-    xf, us, carry = fleet_mpc_rollout(
-        f._hp, f.problem, jnp.asarray(x0s), ticks,
-        max_iter=60, check_termination=2,
-        abs_pri_tol=1e-3, abs_dua_tol=1e-3, interpret=True,
-    )
+    _st, xf, trace = jax.jit(
+        lambda x: fleet_mpc_rollout(f.problem, f.cache, sets, x, ticks)
+    )(jnp.asarray(x0s))
     x = jnp.asarray(x0s)
     for t in range(ticks):
         f.set_x0(x)
-        f.solve()
+        info = f.solve()
+        np.testing.assert_array_equal(np.asarray(trace.iters[t]),
+                                      info["iterations"])
         u0 = f.get_u()[:, 0, :]
         np.testing.assert_allclose(
-            np.asarray(us[t]), np.asarray(u0), rtol=0, atol=1e-5
+            np.asarray(trace.u[t]), np.asarray(u0), rtol=0, atol=1e-5
         )
         x = (jnp.einsum("bij,bj->bi", f.problem.A, x)
              + jnp.einsum("bij,bj->bi", f.problem.B, u0))
@@ -195,7 +195,7 @@ def test_fleet_set_xref(plants):
     sets = atm.Settings(max_iter=120, check_termination=2,
                         abs_pri_tol=5e-3, abs_dua_tol=5e-3)
     f = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
+        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets,
     )
     rng = np.random.default_rng(2)
     # Small distinct setpoints (positions only meaningful for random LTI —
@@ -230,7 +230,7 @@ def test_fleet_set_bounds(plants):
     sets = atm.Settings(max_iter=200, check_termination=2,
                         abs_pri_tol=5e-3, abs_dua_tol=5e-3)
     f = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
+        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets,
     )
     f.set_x0(x0s * 3.0)  # large excursions so bounds bind
     f.solve()
@@ -252,17 +252,15 @@ def test_fleet_set_bounds(plants):
 
 def test_fleet_per_instance_cones_tiers_agree(plants):
     """Per-instance cone mu + ball/axis geometry through the fleet surface:
-    the hetero kernel's lane-packed masked projection and the instance-ops
-    tier's jnp masked projection (project_cone_masked) follow identical
-    schedules and agree per instance."""
+    the instance-ops tier's jnp masked projection (project_cone_masked)
+    agrees per instance with scan-tier solves that carry each group's
+    geometry as a static ConeSet."""
     from accelerated_tinympc_tpu.solver.cones import Cone, ConeSet
 
     A, Bm, Q, R, x0s = plants
-    cones = ConeSet(input_cones=(Cone(ball=(0, 1), axis=2, mu=1.0,
-                                      shift=2.0),))
-    rng = np.random.default_rng(11)
-    mu = (0.5 + 0.7 * rng.random(B)).astype(np.float32)
+    base = Cone(ball=(0, 1), axis=2, mu=1.0, shift=2.0)
     h = B // 2
+    mu = np.where(np.arange(B) < h, 0.6, 1.1).astype(np.float32)
     ball = np.zeros((B, NU), np.float32)
     ball[:h, [0, 1]] = 1.0
     ball[h:, [1, 2]] = 1.0
@@ -270,47 +268,48 @@ def test_fleet_per_instance_cones_tiers_agree(plants):
     axis[h:] = 0
     sets = atm.Settings(max_iter=150, check_termination=2,
                         abs_pri_tol=5e-3, abs_dua_tol=5e-3)
-    fleets = {}
-    for tier in ("hetero", "instance_ops"):
-        f = atm.TinyMPCFleet.setup(
-            A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, tier=tier,
-            interpret=True, cones=cones, cone_mu=mu[None, :],
-            cone_ball=[ball], cone_axis=[axis],
-        )
-        f.set_x0(x0s)
-        fleets[tier] = (f, f.solve())
-    fh, ih = fleets["hetero"]
-    fo, io = fleets["instance_ops"]
-    np.testing.assert_array_equal(ih["iterations"], io["iterations"])
-    np.testing.assert_array_equal(ih["solved"], io["solved"])
-    np.testing.assert_allclose(
-        np.asarray(fh.get_u()), np.asarray(fo.get_u()), rtol=0, atol=5e-5
-    )
-    # The geometry genuinely binds: dropping the overrides changes results.
-    f0 = atm.TinyMPCFleet.setup(
+    fo = atm.TinyMPCFleet.setup(
         A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, tier="instance_ops",
-        interpret=True, cones=cones,
+        cones=ConeSet(input_cones=(base,)), cone_mu=mu[None, :],
+        cone_ball=[ball], cone_axis=[axis], polish=False,
     )
-    f0.set_x0(x0s)
-    f0.solve()
-    assert float(np.max(np.abs(
-        np.asarray(fo.get_u()) - np.asarray(f0.get_u())
-    ))) > 1e-4
+    fo.set_x0(x0s)
+    io = fo.solve()
+    groups = ((slice(0, h), Cone(ball=(0, 1), axis=2, mu=0.6, shift=2.0)),
+              (slice(h, B), Cone(ball=(1, 2), axis=0, mu=1.1, shift=2.0)))
+    for sl, cone in groups:
+        fs = atm.TinyMPCFleet.setup(
+            A[sl], Bm[sl], Q[sl], R[sl], rho=1.0, horizon=N, settings=sets,
+            cones=ConeSet(input_cones=(cone,)), polish=False,
+        )
+        fs.set_x0(x0s[sl])
+        is_ = fs.solve()
+        np.testing.assert_array_equal(is_["iterations"], io["iterations"][sl])
+        np.testing.assert_allclose(
+            np.asarray(fs.get_u()), np.asarray(fo.get_u())[sl],
+            rtol=0, atol=1e-4,
+        )
+    with pytest.raises(ValueError, match="instance_ops"):
+        atm.TinyMPCFleet.setup(
+            A, Bm, Q, R, rho=1.0, horizon=N, settings=sets,
+            cones=ConeSet(input_cones=(base,)), cone_mu=mu[None, :],
+            polish=False,
+        )
 
 
 def test_fleet_cache_precision(plants):
-    """VERDICT r3 item 4: fleet controls driven by device-built (polished)
-    caches match controls driven by host-f64 caches at the same tol within
-    the 1e-4 parity bar (expected ~1e-6; the unpolished f32 caches miss the
-    bar at ~7e-4, BASELINE.md)."""
+    """Fleet controls driven by device-built (polished) caches match
+    controls driven by host-f64 caches at the same tol within the 1e-4
+    parity bar (expected ~1e-6; the unpolished f32 caches land further
+    off)."""
     from accelerated_tinympc_tpu.precompute import riccati_cache
 
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=60, check_termination=0)
     f_dev = atm.TinyMPCFleet.setup(
         A, Bm, Q, R, rho=1.0, horizon=N,
-        u_min=-2.0, u_max=2.0, settings=sets, tier="hetero",
-        interpret=True, polish=True,
+        u_min=-2.0, u_max=2.0, settings=sets,
+        polish=True,
     )
     # Host gold standard at the polish's own tolerance (both sides converge
     # to the true fixed point, so truncation offsets cancel).
@@ -323,8 +322,8 @@ def test_fleet_cache_precision(plants):
     )
     f_host = atm.TinyMPCFleet.setup(
         A, Bm, Q, R, rho=1.0, horizon=N,
-        u_min=-2.0, u_max=2.0, settings=sets, tier="hetero",
-        interpret=True, host_precompute=True,
+        u_min=-2.0, u_max=2.0, settings=sets,
+        host_precompute=True,
     )
     # swap in the tol-1e-9 host caches (host_precompute uses tol 1e-5)
     f_host.cache = cache_host
@@ -340,8 +339,8 @@ def test_fleet_cache_precision(plants):
     # And the unpolished build genuinely misses the bar (the polish is real).
     f_raw = atm.TinyMPCFleet.setup(
         A, Bm, Q, R, rho=1.0, horizon=N,
-        u_min=-2.0, u_max=2.0, settings=sets, tier="hetero",
-        interpret=True, polish=False,
+        u_min=-2.0, u_max=2.0, settings=sets,
+        polish=False,
     )
     f_raw.set_x0(x0s)
     f_raw.solve()
@@ -350,26 +349,25 @@ def test_fleet_cache_precision(plants):
     assert du_raw > du, (du_raw, du)
 
 
-def test_fleet_adaptive_rho_hetero_engine(plants):
-    """solve_adaptive_rho(engine='hetero') — the fused single-dispatch loop
-    (solver/adaptive_hetero.py) behind the fleet surface — agrees with the
-    einsum engine on adaptation decisions (rho, solved set, chunk rounds)."""
+def test_fleet_adaptive_rho_engines_agree(plants):
+    """solve_adaptive_rho(engine='scan') (the default for the scan tier)
+    and engine='einsum' agree on adaptation decisions (rho, solved set,
+    chunk rounds)."""
     A, Bm, Q, R, x0s = plants
     rho0 = np.concatenate([np.full(B // 2, 1.0), np.full(B - B // 2, 1e-3)])
     sets = atm.Settings(abs_pri_tol=0.02, abs_dua_tol=0.02,
                         check_termination=1)
     outs = {}
-    for engine in ("einsum", "hetero"):
+    for engine in ("einsum", "scan"):
         f = atm.TinyMPCFleet.setup(
             A, Bm, Q, R, rho=rho0, horizon=N,
-            u_min=-2.0, u_max=2.0, settings=sets, tier="hetero",
-            interpret=True, polish=False,
+            u_min=-2.0, u_max=2.0, settings=sets, polish=False,
         )
         f.set_x0(x0s)
         outs[engine] = f.solve_adaptive_rho(
             engine=engine, chunk=25, max_rounds=40, riccati="vmap",
         )
-    e, h = outs["einsum"], outs["hetero"]
+    e, h = outs["einsum"], outs["scan"]
     np.testing.assert_array_equal(e["solved"], h["solved"])
     assert e["solved"].all()
     np.testing.assert_allclose(e["rho"], h["rho"], rtol=5e-2)
@@ -378,69 +376,33 @@ def test_fleet_adaptive_rho_hetero_engine(plants):
     )
 
 
-def test_fleet_hstream_tier():
-    """tier='hstream': the long-horizon per-instance-plant kernel behind the
-    fleet surface — fixed-mode parity vs the hetero tier at a VMEM-resident
-    horizon, warm-started re-solve, and adaptive mode via the cascade."""
-    n = 16
-    As, Bs, Qs, Rs = [], [], [], []
-    for seed in range(B):
-        p, _rho = random_lti_problem(seed=seed, nx=NX, nu=NU, horizon=n)
-        As.append(np.asarray(p.A)); Bs.append(np.asarray(p.B))
-        Qs.append(np.asarray(p.Q)); Rs.append(np.asarray(p.R))
-    A, Bm, Q, R = np.stack(As), np.stack(Bs), np.stack(Qs), np.stack(Rs)
-    rng = np.random.default_rng(1)
-    x0s = rng.standard_normal((B, NX)).astype(np.float32) * 0.4
-    sets = atm.Settings(max_iter=20, check_termination=0)
-    outs = {}
-    for tier in ("hstream", "hetero"):
-        f = atm.TinyMPCFleet.setup(
-            A, Bm, Q, R, rho=1.0, horizon=n,
-            u_min=-2.0, u_max=2.0, settings=sets, tier=tier,
-            interpret=True, polish=False,
-        )
-        f.set_x0(x0s)
-        f.solve()
-        outs[tier] = f
-    # atol 5e-4: interpret-mode cross-kernel FMA drift (on chip the two
-    # kernels match bit-exactly — tools/tpu_check_hstream.py + the
-    # per-instance-cone on-chip check).
-    np.testing.assert_allclose(
-        np.asarray(outs["hstream"].get_u()),
-        np.asarray(outs["hetero"].get_u()), rtol=0, atol=5e-4,
-    )
-    # Warm-started re-solve then adaptive-cascade mode run end to end.
-    f = outs["hstream"]
-    f.set_x0(x0s)
-    f.solve()
-    f.settings = sets.replace(max_iter=40, check_termination=1,
-                              abs_pri_tol=5e-2, abs_dua_tol=5e-2)
-    f.set_x0(x0s)
-    out = f.solve()
-    assert out["converged_fraction"] > 0
-
-
 def test_fleet_set_plants_online_refresh(plants):
-    """set_plants: online model drift + Newton cache refresh at kernel
-    speed. Drifted caches must match a cold setup of the drifted plants
-    (f32 envelope), and the subsequent solve must equal the cold fleet's
-    solve exactly when caches agree to the bit — here checked at control
-    tolerance."""
+    """set_plants: online model drift + warm Newton cache refresh on
+    device (the default refresh)."""
+    test_fleet_set_plants_refresh(plants, "newton")
+
+
+@pytest.mark.parametrize("refresh", ["newton", "fixed_point"])
+def test_fleet_set_plants_refresh(plants, refresh):
+    """set_plants: online model drift + warm cache refresh on device.
+    Drifted caches must match a cold setup of the drifted plants (f32
+    envelope), and the subsequent solve must match the cold fleet's solve
+    at control tolerance."""
     from accelerated_tinympc_tpu.api.fleet import TinyMPCFleet
 
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=25, check_termination=0)
     fleet = TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
+        A, Bm, Q, R, rho=1.0, horizon=N, settings=sets,
         polish=False,
         u_min=np.full((B, NU), -2.0), u_max=np.full((B, NU), 2.0),
     )
     rng = np.random.default_rng(11)
     A2 = A + 0.01 * rng.standard_normal(A.shape).astype(np.float32)
     B2 = Bm + 0.01 * rng.standard_normal(Bm.shape).astype(np.float32)
-    fleet.set_plants(A=A2, B=B2, refresh="newton")
+    fleet.set_plants(A=A2, B=B2, refresh=refresh)
     cold = TinyMPCFleet.setup(
-        A2, B2, Q, R, rho=1.0, horizon=N, settings=sets, interpret=True,
+        A2, B2, Q, R, rho=1.0, horizon=N, settings=sets,
         polish=False,
         u_min=np.full((B, NU), -2.0), u_max=np.full((B, NU), 2.0),
     )
@@ -459,60 +421,17 @@ def test_fleet_set_plants_online_refresh(plants):
     )
 
 
-def test_fleet_adaptive_rho_mesh(plants):
-    """solve_adaptive_rho(mesh=...) shards the fused hetero adaptation loop
-    (parallel.sharded_adaptive_hetero, round 5) and matches the unsharded
-    engine="hetero" loop's per-instance decisions."""
-    from accelerated_tinympc_tpu.parallel import make_batch_mesh
-
-    A, Bm, Q, R, x0s = plants
-    sets = atm.Settings(abs_pri_tol=0.02, abs_dua_tol=0.02,
-                        check_termination=1)
-    rho0 = np.asarray([1.0] * 6 + [1e-3] * 3 + [1e3] * 3, np.float32)
-    kw = dict(chunk=25, max_rounds=40, riccati="vmap")
-
-    f0 = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=rho0, horizon=N, settings=sets, tier="hetero",
-        interpret=True, polish=False,
-    )
-    f0.set_x0(x0s)
-    want = f0.solve_adaptive_rho(engine="hetero", **kw)
-
-    mesh = make_batch_mesh(4)  # B=12 -> 3 instances/device
-    f1 = atm.TinyMPCFleet.setup(
-        A, Bm, Q, R, rho=rho0, horizon=N, settings=sets, tier="hetero",
-        interpret=True, polish=False,
-    )
-    f1.set_x0(x0s)
-    got = f1.solve_adaptive_rho(mesh=mesh, **kw)
-
-    np.testing.assert_array_equal(got["solved"], want["solved"])
-    assert bool(np.all(got["solved"]))
-    np.testing.assert_allclose(got["rho"], want["rho"], rtol=5e-2)
-    got_rounds = np.ceil(got["iterations"] / kw["chunk"])
-    want_rounds = np.ceil(want["iterations"] / kw["chunk"])
-    np.testing.assert_array_equal(got_rounds, want_rounds)
-    # Adopted caches drive matching subsequent solves.
-    np.testing.assert_allclose(
-        np.asarray(f1.cache.Kinf), np.asarray(f0.cache.Kinf),
-        rtol=2e-4, atol=2e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(f1.get_u()), np.asarray(f0.get_u()), rtol=0, atol=5e-2
-    )
-
-
 def test_fleet_block_tier(plants):
-    """tier="block" (round 5): per-instance block-condensed MXU sweeps
-    behind the fleet surface — schedule-identical to the instance_ops
-    tier, warm re-solve protocol composes."""
+    """tier="block": per-instance block-condensed sweeps behind the fleet
+    surface — schedule-identical to the instance_ops tier, warm re-solve
+    protocol composes."""
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=40, check_termination=1)
     outs = {}
     for tier in ("block", "instance_ops"):
         f = atm.TinyMPCFleet.setup(
             A, Bm, Q, R, rho=1.0, horizon=N, u_min=-2.0, u_max=2.0,
-            settings=sets, tier=tier, interpret=True, polish=False,
+            settings=sets, tier=tier, polish=False,
             block=4,
         )
         f.set_x0(x0s)
@@ -532,16 +451,15 @@ def test_fleet_block_tier(plants):
 
 
 def test_fleet_scan_tier(plants):
-    """tier="scan" (round 5): vmapped scan sweeps with per-instance
-    plants behind the fleet surface — the measured per-instance
-    long-horizon fast path; schedule-identical to instance_ops."""
+    """tier="scan" (the default): vmapped scan sweeps with per-instance
+    plants behind the fleet surface; schedule-identical to instance_ops."""
     A, Bm, Q, R, x0s = plants
     sets = atm.Settings(max_iter=40, check_termination=1)
     outs = {}
     for tier in ("scan", "instance_ops"):
         f = atm.TinyMPCFleet.setup(
             A, Bm, Q, R, rho=1.0, horizon=N, u_min=-2.0, u_max=2.0,
-            settings=sets, tier=tier, interpret=True, polish=False,
+            settings=sets, tier=tier, polish=False,
         )
         f.set_x0(x0s)
         outs[tier] = (f, f.solve())

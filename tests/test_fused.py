@@ -1,7 +1,8 @@
-"""Fused Pallas kernel vs the jnp tiers, via the Pallas interpreter on CPU
-(SURVEY.md §4: kernel paths must be testable without a TPU). Semantics bar:
-same schedule as the reference iteration, controls inside the 1e-4 parity
-band, identical iteration counts / convergence flags in adaptive mode."""
+"""Fused kernel (Pallas, Triton route) vs the jnp tiers, via the Pallas
+interpreter on CPU (SURVEY.md §4: kernel paths must be testable without the
+card). Semantics bar: same schedule as the reference iteration, controls
+inside the 1e-4 parity band, identical iteration counts / convergence flags
+in adaptive mode."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ from accelerated_tinympc_tpu.ops.fused_admm import (
     unpad_states,
 )
 from accelerated_tinympc_tpu.precompute import condensed_operators
+from accelerated_tinympc_tpu.utils.parity import compare_schedules
 from accelerated_tinympc_tpu.solver.batched import init_state_batched, solve_batched
 
 B = 8
@@ -50,7 +52,7 @@ class TestFixedIterations:
         problem, cache, pp, x0s = setup
         carry = FusedCarry.zeros(B, pp)
         got = fused_solve(
-            x0s, carry, pp, max_iter=25, check_termination=0, batch_tile=B,
+            x0s, carry, pp, max_iter=25, check_termination=0, batch_tile=16,
             interpret=True,
         )
         want = _run_scan(
@@ -103,7 +105,7 @@ class TestAdaptive:
         carry = FusedCarry.zeros(B, pp)
         got = fused_solve(
             x0s, carry, pp, max_iter=400, check_termination=1,
-            abs_pri_tol=0.05, abs_dua_tol=0.05, batch_tile=B, interpret=True,
+            abs_pri_tol=0.05, abs_dua_tol=0.05, batch_tile=16, interpret=True,
         )
         want = _run_scan(
             problem, cache, x0s,
@@ -151,8 +153,8 @@ class TestAdaptive:
 
 
 class TestWideHorizon:
-    """Generality beyond one 128-lane tile: N=22 -> Dx=264 -> Dxp=384 (three
-    lane tiles on the state side), exercising the widen/chunked-max paths."""
+    """Generality beyond the hovering widths: N=22 -> Dx=264 -> Dxp=512,
+    Du=84 -> Dup=128."""
 
     @pytest.fixture(scope="class")
     def wide_setup(self):
@@ -168,7 +170,7 @@ class TestWideHorizon:
             cache, np.asarray(problem.A), np.asarray(problem.B), 22
         )
         pp = pad_problem(problem, cache, ops)
-        assert pp.Dxp == 384 and pp.Dup == 128  # the case under test
+        assert pp.Dxp == 512 and pp.Dup == 128  # the case under test
         rng = np.random.default_rng(2)
         x0s = jnp.asarray(rng.standard_normal((8, 12)) * 0.3, jnp.float32)
         return problem, cache, pp, x0s
@@ -180,13 +182,13 @@ class TestWideHorizon:
         if mode == "fixed":
             got = fused_solve(
                 x0s, carry, pp, max_iter=20, check_termination=0,
-                batch_tile=8, interpret=True,
+                batch_tile=16, interpret=True,
             )
             settings = atm.Settings(max_iter=20, check_termination=0)
         else:
             got = fused_solve(
                 x0s, carry, pp, max_iter=100, check_termination=1,
-                abs_pri_tol=0.05, abs_dua_tol=0.05, batch_tile=8,
+                abs_pri_tol=0.05, abs_dua_tol=0.05, batch_tile=16,
                 interpret=True,
             )
             settings = atm.Settings(
@@ -211,75 +213,146 @@ def test_non_tile_multiple_batch(setup):
     x0_odd = x0s[:5]
     got = fused_solve(
         x0_odd, FusedCarry.zeros(5, pp), pp, max_iter=20,
-        check_termination=0, batch_tile=4, interpret=True,
+        check_termination=0, batch_tile=16, interpret=True,
     )
     assert got.U.shape[0] == 5 and got.stats.shape[0] == 5
     want = fused_solve(
         x0s[:8], FusedCarry.zeros(8, pp), pp, max_iter=20,
-        check_termination=0, batch_tile=4, interpret=True,
+        check_termination=0, batch_tile=16, interpret=True,
     )
     np.testing.assert_allclose(
         np.asarray(got.U), np.asarray(want.U[:5]), rtol=0, atol=1e-6
     )
 
 
-def test_adaptive_warmup_equivalence(setup):
-    """warmup_iters below the earliest convergence leaves adaptive results
-    identical (the warmup chunk just skips bookkeeping no instance needed)."""
+@pytest.mark.parametrize("batch_tile", [16, 32, 64])
+def test_batch_tile_invariance(setup, batch_tile):
+    """Rows are independent: the tile size changes the grid, not the
+    per-instance iterates or adaptive schedules."""
     problem, cache, pp, x0s = setup
-    kw = dict(max_iter=400, check_termination=1, abs_pri_tol=0.05,
-              abs_dua_tol=0.05, batch_tile=8, interpret=True)
-    plain = fused_solve(x0s, FusedCarry.zeros(8, pp), pp, **kw)
-    warm = fused_solve(x0s, FusedCarry.zeros(8, pp), pp, warmup_iters=32, **kw)
-    assert np.asarray(plain.stats[:, 0]).min() > 32  # premise: no early conv
-    np.testing.assert_array_equal(
-        np.asarray(plain.stats[:, 0]), np.asarray(warm.stats[:, 0])
-    )
-    np.testing.assert_allclose(
-        np.asarray(plain.U), np.asarray(warm.U), rtol=0, atol=1e-6
-    )
+    kw = dict(max_iter=200, check_termination=1, abs_pri_tol=0.05,
+              abs_dua_tol=0.05, interpret=True)
+    ref = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, batch_tile=16, **kw)
+    got = fused_solve(x0s, FusedCarry.zeros(B, pp), pp,
+                      batch_tile=batch_tile, **kw)
+    np.testing.assert_array_equal(np.asarray(got.stats[:, 0]),
+                                  np.asarray(ref.stats[:, 0]))
+    np.testing.assert_allclose(np.asarray(got.U), np.asarray(ref.U),
+                               rtol=0, atol=1e-6)
 
 
-def test_bf16x3_parity(setup):
-    """algo='bf16x3' (3-pass split-operand bf16 matmuls + f32 polish tail)
-    stays inside the 1e-4 control-parity bar over the reference's full
-    100-iteration budget."""
+@pytest.mark.parametrize("batch_tile", [0, 8, 24])
+def test_batch_tile_must_be_pow2_ge16(setup, batch_tile):
+    problem, cache, pp, x0s = setup
+    with pytest.raises(ValueError, match="power of two"):
+        fused_solve(x0s, FusedCarry.zeros(B, pp), pp, max_iter=2,
+                    batch_tile=batch_tile, interpret=True)
+
+
+@pytest.mark.parametrize("check", [5, 10])
+def test_check_interval_schedule(setup, check):
+    """Checks fire only at multiples of ``check_termination`` (reference
+    admm.cpp:93); counts equal the scan tier's at that cadence."""
     problem, cache, pp, x0s = setup
     got = fused_solve(
-        x0s, FusedCarry.zeros(B, pp), pp, max_iter=100, check_termination=0,
-        batch_tile=B, interpret=True, algo="bf16x3",
+        x0s, FusedCarry.zeros(B, pp), pp, max_iter=400,
+        check_termination=check, abs_pri_tol=0.05, abs_dua_tol=0.05,
+        interpret=True,
     )
-    want = _run_scan(
-        problem, cache, x0s, atm.Settings(max_iter=100, check_termination=0)
-    )
-    err = np.max(np.abs(
-        np.asarray(got.U[:, :36]).reshape(B, 9, 4) - np.asarray(want.u)
-    ))
-    assert err < 1e-4, err
+    want = _run_scan(problem, cache, x0s, atm.Settings(
+        abs_pri_tol=0.05, abs_dua_tol=0.05, max_iter=400,
+        check_termination=check))
+    iters = np.asarray(got.stats[:, 0]).astype(int)
+    np.testing.assert_array_equal(iters, np.asarray(want.iter))
+    assert np.all(iters % check == 0)
 
 
-def test_bf16x3_adaptive(setup):
-    """Adaptive bf16x3 (bf16x3 between checks, f32 check iterations): every
-    instance converges with true-f32-residual guarantees and the controls
-    stay inside the parity band vs f32 adaptive; iteration counts may shift
-    near the threshold (the documented trade), but on this well-conditioned
-    problem they should match f32 adaptive exactly."""
+def test_alpha_relaxation_matches_scan(setup):
+    """Settings.alpha (over-relaxation) is honoured in-kernel exactly like
+    the scan tier's admm_iteration."""
     problem, cache, pp, x0s = setup
-    kw = dict(
-        max_iter=400, check_termination=5, abs_pri_tol=0.05,
-        abs_dua_tol=0.05, batch_tile=B, interpret=True,
+    got = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, max_iter=30,
+                      alpha=1.6, interpret=True)
+    want = _run_scan(problem, cache, x0s, atm.Settings(
+        max_iter=30, check_termination=0, alpha=1.6))
+    u = np.asarray(got.U[:, :36]).reshape(B, 9, 4)
+    np.testing.assert_allclose(u, np.asarray(want.u), rtol=0, atol=1e-4)
+
+
+def test_warm_carry_continuation(setup):
+    """Fixed mode is a pure map on the carries: two chained 10-iteration
+    solves equal one 20-iteration solve (the warm-start contract)."""
+    problem, cache, pp, x0s = setup
+    one = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, max_iter=20,
+                      interpret=True)
+    a = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, max_iter=10,
+                    interpret=True)
+    b = fused_solve(x0s, a.carry, pp, max_iter=10, interpret=True)
+    np.testing.assert_allclose(np.asarray(b.U), np.asarray(one.U),
+                               rtol=0, atol=1e-5)
+
+
+def test_tracking_operands_match_scan(setup):
+    """xref_q/pterm_c override the baked reference (tracking window) with
+    the same controls as a scan solve on that reference."""
+    from accelerated_tinympc_tpu.ops.fused_admm import ref_vectors
+
+    problem, cache, pp, x0s = setup
+    rng = np.random.default_rng(3)
+    Xref = jnp.asarray(0.2 * rng.standard_normal(problem.Xref.shape),
+                       jnp.float32)
+    xq, pc = ref_vectors(pp, problem.Q, cache.Pinf, Xref)
+    got = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, max_iter=25,
+                      xref_q=xq, pterm_c=pc, interpret=True)
+    want = _run_scan(problem.replace(Xref=Xref), cache, x0s,
+                     atm.Settings(max_iter=25, check_termination=0))
+    u = np.asarray(got.U[:, :36]).reshape(B, 9, 4)
+    np.testing.assert_allclose(u, np.asarray(want.u), rtol=0, atol=1e-4)
+
+
+def test_per_knot_bounds_match_scan(setup):
+    """Time-varying (per-knot) input bounds pass through the flattened
+    bound rows."""
+    problem, cache, _pp, x0s = setup
+    m = problem.horizon - 1
+    ramp = jnp.linspace(0.05, 0.5, m)[:, None] * jnp.ones((1, problem.nu))
+    prob = problem.replace(u_min=-ramp, u_max=ramp)
+    ops = condensed_operators(
+        cache, np.asarray(prob.A), np.asarray(prob.B), prob.horizon
     )
-    got3 = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, algo="bf16x3", **kw)
-    gotf = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, algo="f32", **kw)
-    s3 = np.asarray(got3.stats)
-    assert np.all(s3[:, 1] == 1.0), "all instances must converge"
-    # Recorded residuals are exact f32 residuals of the returned iterates
-    # and must satisfy the tolerances.
-    assert np.all(s3[:, 2:6] < 0.05 + 1e-6), s3[:, 2:6].max()
-    # Both stop at the (loose) 0.05 residual band, so the two solutions are
-    # each ~tol from the fixed point; the cross-algo gap is bf16x3 drift on
-    # top of that, well under the stopping band.
-    err = np.max(np.abs(np.asarray(got3.U[:, :36]) -
-                        np.asarray(gotf.U[:, :36])))
-    assert err < 5e-4, err
-    assert np.array_equal(s3[:, 0], np.asarray(gotf.stats)[:, 0])
+    pp = pad_problem(prob, cache, ops)
+    got = fused_solve(x0s, FusedCarry.zeros(B, pp), pp, max_iter=30,
+                      interpret=True)
+    want = _run_scan(prob, cache, x0s,
+                     atm.Settings(max_iter=30, check_termination=0))
+    u = np.asarray(got.U[:, :36]).reshape(B, 9, 4)
+    np.testing.assert_allclose(u, np.asarray(want.u), rtol=0, atol=1e-4)
+    assert float(jnp.abs(want.znew).max()) <= 0.5 + 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("check", [0, 1])
+def test_kernel_compiled_for_card_matches_scan(setup, check):
+    """The kernel as Triton compiles it for the card (no interpreter)
+    matches the scan tier: controls within the parity bar; adaptive counts
+    equal up to the knife-edge rule of utils.parity.compare_schedules."""
+    problem, cache, pp, x0s = setup
+    tol = 0.05
+    kw = dict(max_iter=100, check_termination=check, abs_pri_tol=tol,
+              abs_dua_tol=tol)
+    got = jax.jit(lambda x: fused_solve(x, FusedCarry.zeros(B, pp), pp,
+                                        **kw))(x0s)
+    want = _run_scan(problem, cache, x0s, atm.Settings(**kw))
+    u = np.asarray(got.U[:, :36]).reshape(B, 9, 4)
+    if not check:
+        np.testing.assert_allclose(u, np.asarray(want.u), rtol=0, atol=1e-4)
+        return
+    r_s = np.stack([np.asarray(want.primal_residual_state),
+                    np.asarray(want.dual_residual_state),
+                    np.asarray(want.primal_residual_input),
+                    np.asarray(want.dual_residual_input)], axis=-1)
+    ok, err, detail = compare_schedules(
+        (np.asarray(got.stats[:, 0]).astype(int), got.stats[:, 2:6], u),
+        (np.asarray(want.iter), r_s, want.u), atm.Settings(**kw),
+        max_share=1.0 / B)
+    assert ok, (err, detail)

@@ -1,8 +1,8 @@
 """Randomized cross-tier consistency fuzzing: for random stabilizable plants
-across (nx, nu, N) shapes, all solver tiers (scan, assoc, condensed, fused,
-hetero, stream — and the coned variants of each that supports cones) must
-agree on the same ADMM trajectory (fixed iterations; tolerances scaled for
-f32 drift)."""
+across (nx, nu, N) shapes, all solver tiers (scan, assoc, condensed, block,
+fused, instance-ops — and the coned variants of each that supports cones)
+must agree on the same ADMM trajectory (fixed iterations; tolerances scaled
+for f32 drift)."""
 
 import jax
 import jax.numpy as jnp
@@ -81,18 +81,15 @@ def test_all_tiers_agree(nx, nu, N):
     pp = pad_problem(problem, cache, ops)
     res = fused_solve(
         x0s, FusedCarry.zeros(B, pp), pp, max_iter=ITERS,
-        check_termination=0, batch_tile=B, interpret=True,
+        check_termination=0, interpret=True,
     )
     u_fused = np.asarray(
         res.U[:, : (N - 1) * nu]
     ).reshape(B, N - 1, nu)
 
-    # hetero tier (per-instance plants degenerate to a shared one)
-    from accelerated_tinympc_tpu.ops.hetero_admm import (
-        HeteroCarry, pad_hetero_problem,
-    )
-    from accelerated_tinympc_tpu.ops.hetero_admm import (
-        hetero_solve as _hsolve,
+    # instance-ops tier (per-instance plants degenerate to a shared one)
+    from accelerated_tinympc_tpu.solver.batched_ops import (
+        OpsState, build_instance_ops, solve_instance_ops,
     )
 
     bcast = lambda t: jax.tree.map(
@@ -100,25 +97,14 @@ def test_all_tiers_agree(nx, nu, N):
             jnp.asarray(a), (B,) + jnp.asarray(a).shape
         ), t
     )
-    hp = pad_hetero_problem(bcast(problem), bcast(cache))
-    hres = _hsolve(
-        x0s, HeteroCarry.zeros(hp), hp, max_iter=ITERS, interpret=True
+    iops = build_instance_ops(bcast(problem), bcast(cache))
+    ist = solve_instance_ops(
+        x0s, OpsState.zeros(B, N * nx, (N - 1) * nu), iops, settings,
+        dims=(nx, nu),
     )
-    u_het = np.asarray(hres.U)
+    u_iops = np.asarray(ist.U).reshape(B, N - 1, nu)
 
-    # stream tier
-    from accelerated_tinympc_tpu.ops.stream_admm import (
-        StreamCarry, pad_stream_problem, stream_solve,
-    )
-
-    sp = pad_stream_problem(problem, cache)
-    sres = stream_solve(
-        x0s, StreamCarry.zeros(B, sp), sp, max_iter=ITERS,
-        knot_block=min(8, N), interpret=True,
-    )
-    u_stream = np.asarray(sres.U)
-
-    # block-condensed tier (round 5)
+    # block-condensed tier
     from accelerated_tinympc_tpu.solver.block_condensed import solve_block
 
     u_block = np.asarray(
@@ -137,10 +123,8 @@ def test_all_tiers_agree(nx, nu, N):
                                err_msg="condensed")
     np.testing.assert_allclose(u_fused, u_scan, rtol=0, atol=tol,
                                err_msg="fused")
-    np.testing.assert_allclose(u_het, u_scan, rtol=0, atol=tol,
-                               err_msg="hetero")
-    np.testing.assert_allclose(u_stream, u_scan, rtol=0, atol=tol,
-                               err_msg="stream")
+    np.testing.assert_allclose(u_iops, u_scan, rtol=0, atol=tol,
+                               err_msg="instance_ops")
 
 
 CONE_SHAPES = [(4, 2, 8), (12, 4, 10), (9, 5, 17)]
@@ -149,15 +133,7 @@ CONE_SHAPES = [(4, 2, 8), (12, 4, 10), (9, 5, 17)]
 @pytest.mark.parametrize("nx,nu,N", CONE_SHAPES)
 def test_coned_tiers_agree(nx, nu, N):
     """Every cone-capable tier agrees on the coned trajectory: scan
-    (projection override), condensed, fused (in-kernel matmul projection),
-    hetero and stream (in-kernel VPU projection), instance-ops."""
-    from accelerated_tinympc_tpu.ops.fused_admm import pad_cones
-    from accelerated_tinympc_tpu.ops.hetero_admm import (
-        HeteroCarry, hetero_solve, pad_hetero_problem,
-    )
-    from accelerated_tinympc_tpu.ops.stream_admm import (
-        StreamCarry, pad_stream_problem, stream_solve,
-    )
+    (projection override), condensed, block, instance-ops."""
     from accelerated_tinympc_tpu.solver.batched_ops import (
         OpsState, build_instance_ops, solve_instance_ops,
     )
@@ -200,44 +176,20 @@ def test_coned_tiers_agree(nx, nu, N):
         rtol=0, atol=tol, err_msg="condensed",
     )
 
-    pp = pad_problem(problem, cache, ops)
-    res = fused_solve(
-        x0s, FusedCarry.zeros(B, pp), pp, max_iter=ITERS,
-        check_termination=0, batch_tile=B, interpret=True,
-        cone_ops=pad_cones(pp, cones),
-    )
-    np.testing.assert_allclose(
-        np.asarray(res.U[:, : (N - 1) * nu]).reshape(B, N - 1, nu),
-        u_scan, rtol=0, atol=tol, err_msg="fused",
-    )
+    from accelerated_tinympc_tpu.solver.block_condensed import solve_block
+
+    u_block = np.asarray(jax.jit(jax.vmap(lambda s: solve_block(
+        s, problem, cache, settings, block=4,
+        project=cone_slack_update(cones),
+    )))(st).u)
+    np.testing.assert_allclose(u_block, u_scan, rtol=0, atol=tol,
+                               err_msg="block")
 
     bcast = lambda t: jax.tree.map(
         lambda a: jnp.broadcast_to(
             jnp.asarray(a), (B,) + jnp.asarray(a).shape
         ), t
     )
-    hp = pad_hetero_problem(bcast(problem), bcast(cache))
-    hres = hetero_solve(
-        x0s, HeteroCarry.zeros(hp), hp, max_iter=ITERS, interpret=True,
-        cones=cones,
-    )
-    # 3x tol: the hetero kernel's pairwise-tree matvec accumulation rounds
-    # differently from the scan tier's sequential sums (see
-    # test_hetero.py::test_stats_residuals), and the cone's case boundaries
-    # sit where that drift surfaces — measured 3.4e-4 worst at (9,5,17).
-    np.testing.assert_allclose(
-        np.asarray(hres.U), u_scan, rtol=0, atol=3 * tol, err_msg="hetero"
-    )
-
-    sp = pad_stream_problem(problem, cache)
-    sres = stream_solve(
-        x0s, StreamCarry.zeros(B, sp), sp, max_iter=ITERS,
-        knot_block=min(8, N), interpret=True, cones=cones,
-    )
-    np.testing.assert_allclose(
-        np.asarray(sres.U), u_scan, rtol=0, atol=tol, err_msg="stream"
-    )
-
     iops = build_instance_ops(bcast(problem), bcast(cache))
     ist = solve_instance_ops(
         x0s, OpsState.zeros(B, N * nx, (N - 1) * nu), iops, settings,
@@ -252,13 +204,9 @@ def test_coned_tiers_agree(nx, nu, N):
 @pytest.mark.parametrize("nx,nu,N", [s for s in SHAPES if s[0] >= 3])
 def test_masked_cone_tiers_agree(nx, nu, N):
     """Per-instance cone geometry fuzz: random (ball, axis, mu, shift) per
-    instance on the state vector; the hetero kernel's lane-masked
-    projection and the instance-ops tier's jnp masked projection must both
-    match a per-instance scan run with the equivalent *static* cone."""
-    from accelerated_tinympc_tpu.ops.hetero_admm import (
-        HeteroCarry, hetero_solve, pad_hetero_cone_masks,
-        pad_hetero_cone_params, pad_hetero_problem,
-    )
+    instance on the state vector; the instance-ops tier's jnp masked
+    projection must match a per-instance scan run with the equivalent
+    *static* cone."""
     from accelerated_tinympc_tpu.solver.batched_ops import (
         OpsState, build_instance_ops, solve_instance_ops,
     )
@@ -312,18 +260,6 @@ def test_masked_cone_tiers_agree(nx, nu, N):
             jnp.asarray(a), (B,) + jnp.asarray(a).shape
         ), t
     )
-    hp = pad_hetero_problem(bcast(problem), bcast(cache))
-    cm = pad_hetero_cone_masks(cones, B, nx, nu, ball_x=[ball_arr],
-                               axis_x=[axis_arr])
-    cp = pad_hetero_cone_params(cones, B, mu_x=mus[None], shift_x=shifts[None])
-    hres = hetero_solve(
-        x0s, HeteroCarry.zeros(hp), hp, max_iter=ITERS, interpret=True,
-        cones=cones, cone_params=cp, cone_masks=cm,
-    )
-    np.testing.assert_allclose(
-        np.asarray(hres.U), u_ref, rtol=0, atol=3 * tol, err_msg="hetero"
-    )
-
     ca = make_cone_args(cones, B, nx, nu, mu_x=mus[None], shift_x=shifts[None],
                         ball_x=[ball_arr], axis_x=[axis_arr])
     iops = build_instance_ops(bcast(problem), bcast(cache))

@@ -2,10 +2,10 @@
 CPU devices, one batch-sharded solve with psum'd global stats.
 
 SURVEY.md §5 distributed row: the reference has zero distribution; the
-TPU-native DCN entry is ``jax.distributed.initialize`` wrapped by
+multi-host entry is ``jax.distributed.initialize`` wrapped by
 ``parallel.mesh.initialize_distributed``. This test proves that entry and the
-cross-process collective path are live (VERDICT round-1 missing item 3) —
-no TPU or real multi-host needed.
+cross-process collective path are live — no card or real multi-host
+needed.
 """
 
 import os

@@ -8,8 +8,8 @@ src/tinympc/admm.cpp:67-71). Contracts:
 * alpha=1.6 converges to the same constrained solution (same fixed point:
   relaxation changes the iteration map, not its fixed points) in fewer
   iterations on the shipped hovering workload.
-* scan tier and fused kernel agree schedule-for-schedule at alpha=1.6
-  (both adaptive and fixed mode), including with SOC cones.
+* scan tier, fused kernel and condensed tier agree schedule-for-schedule
+  at alpha=1.6 (both adaptive and fixed mode), including with SOC cones.
 """
 
 import jax
@@ -22,7 +22,6 @@ from accelerated_tinympc_tpu.models import quadrotor_hovering_setup
 from accelerated_tinympc_tpu.ops.fused_admm import (
     FusedCarry,
     fused_solve,
-    pad_cones,
     pad_problem,
     unpad_states,
 )
@@ -76,7 +75,7 @@ def test_relaxation_accelerates_constraint_bound_workload(setup):
     """On the hard regime — cold hovering solves with strongly active input
     constraints, where plain ADMM stalls (pri_u plateaus ~1e-2) — alpha=1.6
     reaches tol 0.01 in measurably fewer iterations AND leaves ~4x smaller
-    residuals at a fixed budget (measured round 5, BASELINE.md)."""
+    residuals at a fixed budget."""
     problem, cache, _pp, x0s = setup
     tols = dict(abs_pri_tol=0.01, abs_dua_tol=0.01)
     base = _run_scan(
@@ -134,7 +133,7 @@ def test_fused_matches_scan_at_alpha(setup):
     want = _run_scan(problem, cache, x0s, settings)
     got = fused_solve(
         x0s, FusedCarry.zeros(B, pp), pp, max_iter=60, check_termination=1,
-        batch_tile=B, interpret=True, alpha=1.6,
+        interpret=True, alpha=1.6,
     )
     stats = np.asarray(got.stats)
     np.testing.assert_array_equal(
@@ -153,7 +152,7 @@ def test_fused_fixed_mode_matches_scan_at_alpha(setup):
     want = _run_scan(problem, cache, x0s, settings)
     got = fused_solve(
         x0s, FusedCarry.zeros(B, pp), pp, max_iter=25, check_termination=0,
-        batch_tile=B, interpret=True, alpha=1.6,
+        interpret=True, alpha=1.6,
     )
     x = np.asarray(unpad_states(got, pp))
     np.testing.assert_allclose(x, np.asarray(want.x), rtol=0, atol=2e-4)
@@ -172,30 +171,37 @@ def test_relaxation_composes_with_cones(setup):
     want = jax.jit(lambda s: solve_batched(
         s, problem, cache, settings, project=cone_slack_update(cones)
     ))(st)
-    got = fused_solve(
-        x0s, FusedCarry.zeros(B, pp), pp, max_iter=40, check_termination=1,
-        batch_tile=B, interpret=True, alpha=1.6,
-        cone_ops=pad_cones(pp, cones),
+    from accelerated_tinympc_tpu.solver.condensed import (
+        flatten_problem, init_flat_state, solve_condensed,
     )
-    stats = np.asarray(got.stats)
-    np.testing.assert_array_equal(
-        stats[:, 0].astype(np.int64), np.asarray(want.iter)
-    )
-    nu, N = pp.dims[1], pp.dims[2]
-    u = np.asarray(got.U[:, : nu * (N - 1)]).reshape(B, N - 1, nu)
+
+    ops = condensed_operators(cache, np.asarray(problem.A),
+                              np.asarray(problem.B), problem.horizon)
+    fs = init_flat_state(B, problem.nx, problem.nu,
+                         problem.horizon).replace(x0=x0s)
+    got = jax.jit(lambda s: solve_condensed(
+        s, flatten_problem(problem, cache), ops, settings, problem.nx,
+        cones=cones, nu=problem.nu,
+    ))(fs)
+    np.testing.assert_array_equal(np.asarray(got.iter),
+                                  np.asarray(want.iter))
+    u = np.asarray(got.U).reshape(B, problem.horizon - 1, problem.nu)
     np.testing.assert_allclose(u, np.asarray(want.u), rtol=0, atol=1e-4)
 
 
 def test_in_kernel_mission_at_alpha(setup):
-    """The relaxed iteration threads through the in-kernel rollout too."""
-    from accelerated_tinympc_tpu.api import fused_mpc_rollout
+    """The relaxed iteration threads through the fused-kernel mission
+    (scan of kernel solves) exactly like the scan-tier mission."""
+    from accelerated_tinympc_tpu.api import fused_mpc_rollout, mpc_rollout
 
     problem, cache, pp, x0s = setup
-    kw = dict(problem=problem, max_iter=20, check_termination=1,
-              batch_tile=B, interpret=True, alpha=1.6)
-    xf_k, us_k, _ = fused_mpc_rollout(pp, x0s, 4, in_kernel=True, **kw)
-    xf_s, us_s, _ = fused_mpc_rollout(pp, x0s, 4, in_kernel=False, **kw)
-    np.testing.assert_allclose(np.asarray(us_k), np.asarray(us_s),
+    settings = atm.Settings(max_iter=20, check_termination=1, alpha=1.6)
+    xf_k, us_k, _ = fused_mpc_rollout(
+        pp, x0s, 4, problem=problem, max_iter=20, check_termination=1,
+        interpret=True, alpha=1.6)
+    _st, xf_s, trace = jax.jit(lambda x: mpc_rollout(
+        problem, cache, settings, x, 4, batched=True))(x0s)
+    np.testing.assert_allclose(np.asarray(us_k), np.asarray(trace.u),
                                rtol=0, atol=1e-4)
     np.testing.assert_allclose(np.asarray(xf_k), np.asarray(xf_s),
                                rtol=0, atol=1e-4)
@@ -203,7 +209,7 @@ def test_in_kernel_mission_at_alpha(setup):
 
 def test_condensed_matches_scan_at_alpha(setup):
     """The condensed tier honors Settings.alpha with the scan tier's
-    schedules (round-5 completion: every TinyMPC tier honors alpha)."""
+    schedules (every TinyMPC tier honors alpha)."""
     from accelerated_tinympc_tpu.precompute import condensed_operators as _co
     from accelerated_tinympc_tpu.solver.condensed import (
         flatten_problem, init_flat_state, solve_condensed,

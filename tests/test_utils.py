@@ -23,9 +23,10 @@ class TestProfiling:
     def test_solver_cost_model(self):
         c = solver_cost(12, 4, 10, iters=100)
         assert c["flops_padded"] > c["flops"] > 0
-        # padded model matches the fused kernel's issued matmuls: 5 per iter
-        # at 128x128 lanes
-        assert c["flops_padded"] == 2 * 100 * 5 * 128 * 128
+        # padded model matches the fused kernel's issued matmuls: 4 per
+        # iteration at its power-of-two widths (Dx 120 -> 128, Du 36 -> 64)
+        assert c["flops_padded"] == 2 * 100 * (
+            64 * 128 + 64 * 64 + 128 * 64 + 64 * 64)
 
 
 class TestHealth:
@@ -278,22 +279,152 @@ class TestProfilerTrace:
 
 
 def test_cost_models():
-    """Analytic roofline cost models for all three kernel families have the
-    right scaling shape (padding monotone, useful <= padded, per-iter
-    linearity)."""
-    from accelerated_tinympc_tpu.utils.profiling import (
-        hetero_cost, solver_cost, stream_cost,
-    )
+    """The analytic cost model has the right scaling shape (padding
+    monotone, useful <= padded, linear in iterations)."""
+    from accelerated_tinympc_tpu.utils.profiling import solver_cost
 
     c = solver_cost(12, 4, 10, 100)
     assert c["flops"] <= c["flops_padded"]
-    h = hetero_cost(12, 4, 10, 100)
-    assert h["vpu_flops_useful"] <= h["vpu_flops"]
-    # nx=12 pads to 16 sublanes: padded/useful ratio in a sane band.
-    assert 1.0 < h["vpu_flops"] / h["vpu_flops_useful"] < 4.0
-    s1 = stream_cost(12, 4, 256, 1)
-    s2 = stream_cost(12, 4, 256, 10)
-    assert abs(s2["hbm_bytes_per_solve"] - 10 * s1["hbm_bytes_per_solve"]) < 1
-    # Streaming traffic grows linearly with horizon.
-    assert stream_cost(12, 4, 512, 1)["hbm_bytes_per_iter"] > \
-        1.9 * s1["hbm_bytes_per_iter"]
+    c2 = solver_cost(12, 4, 10, 200)
+    assert c2["flops"] == 2 * c["flops"]
+    assert c2["state_bytes_per_solve"] == c["state_bytes_per_solve"]
+    # Exact powers of two need no padding.
+    e = solver_cost(8, 4, 9, 10)   # Dx = 72 -> 128, Du = 32 -> 32
+    assert e["flops_padded"] > e["flops"]
+
+
+class TestDeviceReporting:
+    """Device metrics name their device and never fall back to the CPU."""
+
+    def test_require_gpu_fails_on_cpu(self):
+        from accelerated_tinympc_tpu.utils.profiling import require_gpu
+
+        with pytest.raises(SystemExit, match="no GPU"):
+            require_gpu()
+
+    def test_device_info_names_platform_kind_count(self):
+        from accelerated_tinympc_tpu.utils.profiling import device_info
+
+        info = device_info()
+        assert info == {"platform": "cpu", "kind": jax.devices()[0].device_kind,
+                        "count": jax.device_count()}
+
+    @pytest.mark.parametrize("kind", ["NVIDIA H100 80GB HBM3",
+                                      "NVIDIA H100 PCIe", "NVIDIA H200"])
+    def test_peaks_known(self, kind):
+        from accelerated_tinympc_tpu.utils.profiling import peaks
+
+        p = peaks(kind)
+        assert p["bf16_flops"] > p["tf32_flops"] > p["f32_flops"] > 0
+        assert p["hbm_bytes_per_s"] > 1e12
+
+    def test_peaks_unknown_device_is_an_error(self):
+        from accelerated_tinympc_tpu.utils.profiling import peaks
+
+        with pytest.raises(KeyError, match="no published peaks"):
+            peaks("cpu")
+
+
+class TestCompileCache:
+    def test_env_dir_wins_and_nothing_else_is_set(self, monkeypatch, tmp_path):
+        from accelerated_tinympc_tpu.utils import compile_cache
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        before = jax.config.jax_compilation_cache_dir
+        assert compile_cache.enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_fixed_path_inside_checkout(self, monkeypatch):
+        from accelerated_tinympc_tpu.utils import compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = compile_cache.enable_compile_cache()
+            assert path == str(compile_cache.CACHE_DIR)
+            assert jax.config.jax_compilation_cache_dir == path
+            assert compile_cache.CACHE_DIR.name == ".jax_cache"
+            gi = (compile_cache.CACHE_DIR.parent / ".gitignore").read_text()
+            assert ".jax_cache/" in gi.split()
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+
+
+class TestCompareSchedules:
+    """utils.parity.compare_schedules: counts equal, or one check apart at a
+    knife edge of the tolerance on a small share of instances."""
+
+    S = atm.Settings(check_termination=2, abs_pri_tol=1e-2, abs_dua_tol=1e-2)
+
+    def _case(self, it_b, r_first, share_ok=True):
+        from accelerated_tinympc_tpu.utils.parity import compare_schedules
+
+        B = 200
+        it_a = np.full(B, 10)
+        r = np.full((B, 4), 5e-3)
+        r_a, r_b = r.copy(), r.copy()
+        r_a[0] = r_first
+        u = np.zeros((B, 3))
+        it_b = np.concatenate([[it_b], np.full(B - 1, 10)])
+        return compare_schedules((it_a, r_a, u), (it_b, r_b, u), self.S,
+                                 max_share=0.01 if share_ok else 0.0)
+
+    @pytest.mark.parametrize("it_b,r_first,share_ok,expect", [
+        (10, 5e-3, True, True),           # identical schedules
+        (12, 9.95e-3, True, True),        # one check apart at the edge
+        (12, 5e-3, True, False),          # one check apart, far from edge
+        (14, 9.95e-3, True, False),       # two checks apart
+        (12, 9.95e-3, False, False),      # share of differences too large
+    ])
+    def test_rule(self, it_b, r_first, share_ok, expect):
+        ok, err, detail = self._case(it_b, r_first, share_ok)
+        assert ok == expect, detail
+        assert detail["differing"] == (0 if it_b == 10 else 1)
+
+    def test_measured_drift_widens_the_edge(self):
+        """A first stopper 10 % under the tolerance is a knife edge when the
+        tiers' residuals at equal counts differ by 12 % of it."""
+        from accelerated_tinympc_tpu.utils.parity import compare_schedules
+
+        B = 200
+        it_a, it_b = np.full(B, 10), np.full(B, 10)
+        it_b[0] = 12
+        r_a = np.full((B, 4), 5e-3)
+        r_b = r_a.copy()
+        r_a[0] = 9e-3
+        r_b[1, 1] = 5e-3 + 1.2e-3
+        u = np.zeros((B, 3))
+        ok, _err, detail = compare_schedules((it_a, r_a, u), (it_b, r_b, u),
+                                             self.S)
+        assert ok and detail["residual_drift_over_tol"] == pytest.approx(0.12)
+        r_b[1, 1] = 5e-3
+        ok, _err, _ = compare_schedules((it_a, r_a, u), (it_b, r_b, u), self.S)
+        assert not ok
+
+    def test_controls_compared_where_counts_agree(self):
+        from accelerated_tinympc_tpu.utils.parity import compare_schedules
+
+        it = np.full(4, 5)
+        r = np.full((4, 4), 1e-3)
+        u_a = np.zeros((4, 2))
+        u_b = u_a.copy()
+        u_b[2, 1] = 3e-4
+        ok, err, _ = compare_schedules((it, r, u_a), (it, r, u_b), self.S)
+        assert not ok and err == pytest.approx(3e-4)
+
+
+class TestMemoryReporting:
+    def test_memory_summary_of_compiled(self):
+        from accelerated_tinympc_tpu.utils.profiling import memory_summary
+
+        compiled = jax.jit(lambda x: x @ x.T).lower(
+            jnp.ones((16, 8))).compile()
+        m = memory_summary(compiled)
+        assert m["argument_size_in_bytes"] == 16 * 8 * 4
+        assert m["output_size_in_bytes"] == 16 * 16 * 4
+
+    def test_peak_bytes_in_use_is_int_or_none(self):
+        from accelerated_tinympc_tpu.utils.profiling import peak_bytes_in_use
+
+        p = peak_bytes_in_use()
+        assert p is None or isinstance(p, int)

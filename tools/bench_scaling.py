@@ -1,7 +1,8 @@
-"""Weak-scaling measurement over a device mesh (BASELINE.md scaling row).
+"""Weak-scaling measurement of the sharded scan-tier solve over a device mesh.
 
-On a multi-chip slice this measures real ICI scaling; on a CPU-only machine
-it validates the sharded path's weak-scaling behavior over virtual devices:
+On a multi-card host this measures real scaling over NVLink; on a CPU-only
+machine it rehearses the sharded path over virtual devices (the rates are
+then the CPU's, not a device metric — every line names its device):
 
   python tools/bench_scaling.py            # real devices
   python tools/bench_scaling.py --virtual 8  # 8 virtual CPU devices
@@ -77,6 +78,7 @@ def main() -> None:
         if base_rate is None:
             base_rate = rate
         print(json.dumps({
+            "device": atm.utils.device_info(),
             "devices": n, "batch": batch,
             "solves_per_sec": round(rate),
             "weak_scaling_efficiency": round(rate / (base_rate * n), 3),

@@ -1,10 +1,10 @@
 // Reference-binary baseline: times the *unmodified* reference TinyMPC solver
 // (linked from /root/reference) on this host's CPU, one core, to give the
-// measured denominator for the TPU headline ("Nx one reference CPU core").
+// measured denominator for the device headline ("Nx one reference CPU core").
 //
 // Workload matches examples/quadrotor_hovering.cpp:73-114 (20 Hz params,
 // bounds +-0.5/+-5, hover z=2 setpoint, duals reset per tick, plant sim
-// x+ = A x + B u). Two modes, matching BASELINE.md's protocol:
+// x+ = A x + B u). Two modes:
 //   fixed : max_iter=<iters>, check_termination=1000 (never) — fixed work
 //   adapt : max_iter=100, check_termination=1, tol 1e-3 — reference defaults
 //

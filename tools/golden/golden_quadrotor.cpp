@@ -1,6 +1,6 @@
 // Golden-data harness: drives the *reference* TinyMPC solver (linked from
 // /root/reference, unmodified) through the hovering and tracking MPC loops and
-// dumps full-precision trajectories for parity tests of the TPU engine.
+// dumps full-precision trajectories for parity tests of the JAX engine.
 //
 // Loop structure mirrors the reference examples (quadrotor_hovering.cpp:90-114,
 // quadrotor_tracking.cpp:93-118); this file only adds CSV dumping.

@@ -3,7 +3,7 @@
 The reference ships its quadrotor plant models and reference trajectories as C++
 initializer-list headers (reference: examples/problem_data/*.hpp,
 examples/trajectory_data/*.hpp). This tool parses the *numbers only* (no code) into
-NumPy archives under accelerated_tinympc_tpu/models/data/ so the TPU framework and
+NumPy archives under accelerated_tinympc_tpu/models/data/ so the framework and
 its golden tests can consume them.
 
 All reference arrays are row-major flat initializers (e.g. Adyn_data[NSTATES*NSTATES],
